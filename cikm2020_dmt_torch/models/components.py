@@ -1,0 +1,261 @@
+"""Shared model components, eval path: feature combiner, behavior-sequence
+interest, stacked MMoE and task towers (``cikm2020_dmt_tpu/models/
+components.py``).  The bias net's params are initialised and carried so the
+tree matches the reference, but serving never runs it."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..core.config import DMTConfig
+from ..data.pipeline import IDS, LEN, WTS
+from ..nn.embedding import (collection_init, pooled_from_grid, presence_mask,
+                            ts_bucketize)
+from ..nn.layers import (Params, dense_apply, dense_init, glorot_uniform,
+                         mlp_apply, mlp_init)
+from ..nn.transformer import encode_decode, transformer_init
+from ..parallel.embedding_shard import DENSE_ENGINE, EmbeddingEngine
+
+
+def feature_wts(batch: dict, feature: str, ids) -> torch.Tensor:
+    """Per-id weights; a presence mask from the lengths when the batch
+    carries none."""
+    wts = batch.get(feature + WTS)
+    if wts is not None:
+        return wts
+    pos = torch.arange(ids.shape[-1], device=ids.device)
+    return (pos < batch[feature + LEN][..., None]).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Pooled feature combiner
+# ---------------------------------------------------------------------------
+
+
+def combiner_dim(cfg: DMTConfig) -> int:
+    dim = cfg.feature_dimension if cfg.is_use_feature else 0
+    dim += sum(spec.dim for spec in cfg.embeddings)
+    for a, _ in cfg.sim_embed:
+        spec = next(s for s in cfg.embeddings if s.feature == a)
+        dim += 2 + 2 * spec.dim  # inner + cosine + |diff| + diff^2
+    return dim
+
+
+def embedding_combiner(emb: Params, batch: dict, cfg: DMTConfig, *,
+                       engine: EmbeddingEngine = DENSE_ENGINE,
+                       seq_cache: Optional[dict] = None) -> torch.Tensor:
+    """[dense features | mean-pooled embedding per spec | sim crosses].
+
+    Features found in ``seq_cache`` (the raw grids ``sequence_interest``
+    gathered) pool from the cached grid instead of gathering again.  (The
+    reference's ``skip_seq``, ``combiner`` and ``wts_override`` serve the
+    single-task transformer and DIN models, which are not ported.)"""
+    parts = []
+    if cfg.is_use_feature:
+        parts.append(batch["features"])
+    ts_feats = frozenset(cfg.attention_ts)
+    sim_wanted = frozenset(x for pair in cfg.sim_embed for x in pair)
+    sim_pool: dict[str, torch.Tensor] = {}
+    for spec in cfg.embeddings:
+        ids = batch[spec.feature + IDS]
+        if spec.feature in ts_feats:
+            ids = ts_bucketize(ids, spec.id_size)
+        wts = feature_wts(batch, spec.feature, ids)
+        lens = batch[spec.feature + LEN]
+        if seq_cache is not None and spec.feature in seq_cache:
+            pooled = pooled_from_grid(seq_cache[spec.feature], wts, lens)
+        else:
+            pooled = engine.pooled(spec.table, emb[spec.table], ids, wts,
+                                   lens)
+        if spec.feature in sim_wanted:
+            sim_pool[spec.feature] = pooled
+        parts.append(pooled)
+    out = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
+    for a, b in cfg.sim_embed:
+        ea, eb = sim_pool[a], sim_pool[b]
+        inner = (ea * eb).sum(dim=1, keepdim=True)
+        norms = torch.linalg.norm(ea, dim=1) * torch.linalg.norm(eb, dim=1)
+        cosine = inner / norms[:, None].clamp(min=1e-12)
+        diff = (ea - eb).abs()
+        out = torch.cat([out, inner, cosine, diff, diff * diff], dim=-1)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Behavior sequences -> interest states
+# ---------------------------------------------------------------------------
+
+
+def seq_input_dim(cfg: DMTConfig, group_idx: int) -> int:
+    spec_of = {s.feature: s for s in cfg.embeddings}
+    return sum(spec_of[u].dim for u, _ in cfg.attention_pairs[group_idx])
+
+
+def ts_dim_of(cfg: DMTConfig, group_idx: int) -> int:
+    if not cfg.is_use_seq_ts or group_idx >= len(cfg.attention_ts):
+        return 0
+    spec = {s.feature: s for s in cfg.embeddings}.get(
+        cfg.attention_ts[group_idx])
+    return spec.dim if spec else 0
+
+
+def interest_dim(cfg: DMTConfig) -> int:
+    tc = cfg.transformer
+    per = tc.d_model
+    if tc.is_trans_out_concat_item and not tc.is_trans_out_by_mlp:
+        per = tc.d_model + (tc.d_model if tc.is_trans_input_by_mlp
+                            else seq_input_dim(cfg, 0))
+    return per * len(cfg.attention_pairs)
+
+
+def sequences_init(gen: torch.Generator, cfg: DMTConfig,
+                   dtype=torch.float32) -> Params:
+    return {f"seq{i}": transformer_init(gen, cfg.transformer,
+                                        ts_dim=ts_dim_of(cfg, i),
+                                        in_dim=seq_input_dim(cfg, i),
+                                        dtype=dtype)
+            for i in range(len(cfg.attention_pairs))}
+
+
+def zero_pad_rows(ids: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    """Zero the rows whose id is 0 (padding / 'unknow')."""
+    return torch.where((ids > 0)[..., None], emb,
+                       torch.zeros((), dtype=emb.dtype, device=emb.device))
+
+
+def sequence_interest(params: Params, emb: Params, batch: dict,
+                      cfg: DMTConfig, *,
+                      engine: EmbeddingEngine = DENSE_ENGINE,
+                      dtype: Optional[torch.dtype] = None
+                      ) -> tuple[torch.Tensor, dict]:
+    """Concat of per-sequence user-interest states [B, n_seq * d_model],
+    and the raw (not zero-padded) gathered grids by feature, which the
+    pooled combiner reuses."""
+    spec_of = {s.feature: s for s in cfg.embeddings}
+    tc = cfg.transformer
+    states = []
+    cache: dict[str, torch.Tensor] = {}
+    for gi, group in enumerate(cfg.attention_pairs):
+        first_user = group[0][0]
+        wts = feature_wts(batch, first_user, batch[first_user + IDS])
+        mask = presence_mask(wts, batch[first_user + LEN])
+
+        seq_parts, tar_parts = [], []
+        for user_feat, item_feat in group:
+            uspec, ispec = spec_of[user_feat], spec_of[item_feat]
+            uids = batch[user_feat + IDS]
+            raw_u = engine.seq(uspec.table, emb[uspec.table], uids)
+            cache[user_feat] = raw_u
+            seq_parts.append(zero_pad_rows(uids, raw_u) if cfg.zero_pad
+                             else raw_u)
+            iids = batch[item_feat + IDS]
+            raw_i = engine.seq(ispec.table, emb[ispec.table], iids)
+            cache[item_feat] = raw_i
+            tar = zero_pad_rows(iids, raw_i) if cfg.zero_pad else raw_i
+            tar_parts.append(tar[:, 0, :])  # single-id item feature
+        seq_emb = torch.cat(seq_parts, dim=-1)
+        tar_emb = torch.cat(tar_parts, dim=-1)
+        if dtype is not None:
+            seq_emb, tar_emb = seq_emb.to(dtype), tar_emb.to(dtype)
+
+        ts_emb = None
+        if cfg.is_use_seq_ts and gi < len(cfg.attention_ts):
+            ts_feat = cfg.attention_ts[gi]
+            tspec = spec_of.get(ts_feat)
+            if tspec is not None:
+                buckets = ts_bucketize(batch[ts_feat + IDS], tspec.id_size)
+                raw_ts = engine.seq(tspec.table, emb[tspec.table], buckets)
+                cache[ts_feat] = raw_ts
+                ts_emb = (zero_pad_rows(buckets, raw_ts) if cfg.zero_pad
+                          else raw_ts)
+                if dtype is not None:
+                    ts_emb = ts_emb.to(dtype)
+
+        p = params[f"seq{gi}"]
+        if tc.is_trans_input_by_mlp:
+            seq_emb = dense_apply(p["in_seq"], seq_emb)
+            tar_in = dense_apply(p["in_tar"], tar_emb)
+        else:
+            tar_in = tar_emb
+        state = encode_decode(p, tc, seq_emb=seq_emb, seq_mask=mask,
+                              tar_emb=tar_in, ts_emb=ts_emb)
+        if tc.is_trans_out_concat_item:
+            state = torch.cat([state, tar_in], dim=-1)
+            if tc.is_trans_out_by_mlp:
+                state = dense_apply(p["out_proj"], state)
+        states.append(state)
+    return torch.cat(states, dim=-1), cache
+
+
+# ---------------------------------------------------------------------------
+# Stacked MMoE and task towers
+# ---------------------------------------------------------------------------
+
+
+def mmoe_init(gen: torch.Generator, in_dim: int, cfg: DMTConfig,
+              num_tasks: int = 2, dtype=torch.float32) -> Params:
+    if cfg.is_bn:
+        raise NotImplementedError("batch-norm MMoE experts are not ported")
+    return {
+        "experts": [mlp_init(gen, in_dim, cfg.hidden_units_bottom, None,
+                             dtype=dtype) for _ in range(cfg.num_experts)],
+        "gates": [dense_init(gen, in_dim, cfg.num_experts, bias_init=0.1,
+                             dtype=dtype) for _ in range(num_tasks)],
+    }
+
+
+def mmoe_apply(params: Params, x: torch.Tensor) -> list[torch.Tensor]:
+    """Per-task mixtures [B, hidden_bottom[-1]]: all experts in batched
+    matmuls (layer 0 as one [in, E * H0] product, deeper layers batched
+    over the expert axis), both gates in one product."""
+    experts = params["experts"]
+    E = len(experts)
+    w0 = torch.cat([p["layer0"]["dense"]["w"] for p in experts], dim=1)
+    b0 = torch.cat([p["layer0"]["dense"]["b"] for p in experts])
+    y = torch.relu(x @ w0.to(x.dtype) + b0.to(x.dtype))
+    y = y.reshape(x.shape[0], E, -1)                       # [B, E, H0]
+    n_layers = sum(1 for k in experts[0] if k.startswith("layer"))
+    for i in range(1, n_layers):
+        wi = torch.stack([p[f"layer{i}"]["dense"]["w"] for p in experts])
+        bi = torch.stack([p[f"layer{i}"]["dense"]["b"] for p in experts])
+        y = torch.relu(torch.einsum("beh,ehk->bek", y, wi.to(y.dtype))
+                       + bi[None].to(y.dtype))
+    experts_out = y.transpose(1, 2)                        # [B, H, E]
+    gates = params["gates"]
+    wg = torch.cat([g["w"] for g in gates], dim=1)
+    bg = torch.cat([g["b"] for g in gates])
+    gz = (x @ wg.to(x.dtype) + bg.to(x.dtype)).reshape(x.shape[0],
+                                                        len(gates), E)
+    mix = torch.softmax(gz, dim=-1)                        # [B, T, E]
+    return [torch.einsum("bhe,be->bh", experts_out, mix[:, t])
+            for t in range(len(gates))]
+
+
+def tower_init(gen: torch.Generator, in_dim: int, cfg: DMTConfig,
+               dtype=torch.float32) -> Params:
+    """hidden_units_task relu layers + a 1-unit output with bias 0.1."""
+    return mlp_init(gen, in_dim, cfg.hidden_units_task, cfg.output_units,
+                    out_bias_init=0.1, dtype=dtype)
+
+
+def tower_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
+    return mlp_apply(params, x)
+
+
+# ---------------------------------------------------------------------------
+# Bias net (params only: serving drops the bias head)
+# ---------------------------------------------------------------------------
+
+
+def bias_net_init(gen: torch.Generator, cfg: DMTConfig,
+                  dtype=torch.float32) -> Params:
+    """Bias-net tables keep the param dtype whatever their size, as in the
+    reference."""
+    in_dim = sum(s.dim for s in cfg.embeddings_bias)
+    return {"emb": collection_init(gen, cfg.embeddings_bias, dtype),
+            "mlp": mlp_init(gen, in_dim, cfg.hidden_units_bias,
+                            cfg.output_units, out_bias_init=0.0,
+                            hidden_bias_init=0.0, w_init=glorot_uniform(),
+                            dtype=dtype)}
