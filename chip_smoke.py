@@ -4,19 +4,25 @@ Run from the root of a checkout on a machine with one CUDA card (H100):
 
     python3 chip_smoke.py
 
-It builds the hand-written CUDA kernels from ``cikm2020_dmt_torch/csrc``,
-inits the flagship model of ``conf/dmt.conf`` at full width
-(mmoe_transformer_unbias, Sku 5,000,000 x 32 in bf16, d_model 80) from a
-seeded ``torch.Generator``, and serves three requests of 300 candidates
-through ``serve.export.Scorer`` on the card.  It then
+It builds the hand-written CUDA kernels from ``cikm2020_dmt_torch/csrc``
+(one ``nvcc`` per source, all started together) and drives the port's two
+paths on the flagship model of ``conf/dmt.conf`` at full width
+(mmoe_transformer_unbias, Sku 5,000,000 x 32 in bf16, d_model 80), random
+weights from a seeded ``torch.Generator``:
 
-- checks that the main path launched the fused-block kernel three times
-  per request (one per behavior sequence);
-- holds the kernel against its plain PyTorch version on the card at the
-  main path's shapes (B=300, T=50 and T=10) in float32 and bfloat16, with
-  sequence lengths 0..T;
-- holds the card's Scores against the same Scorer on the CPU;
-- times the requests, the kernel, its plain version and the bound.
+- serving: three requests of 300 candidates through ``serve.export.Scorer``;
+  checks 3 fused-block forward launches per request, the card's Scores
+  against the same Scorer on the CPU, and times the requests;
+- training: ``train.loop.Trainer`` at batch 2048 with dropout on; checks
+  one step at batch 256 (dropout off) against the same step on the CPU,
+  exactly 3 block-forward, 3 block-backward, 1 segment-sum, 1 update_rows
+  and 1 update_rows_3d launches per step, a finite loss that falls over 20
+  steps on one batch, and times the steps (examples/s).
+
+Each path is driven with every launch count set to 0 just before it and
+read just after.  Then every kernel is held against its plain PyTorch
+version on the card at the paths' shapes, and timed beside its bound and,
+where one PyTorch call computes the same function, that call.
 
 Every check raises on failure.  Before the last line it prints the card's
 name and power limit (``nvidia-smi``) and one JSON line ``{"kernels":
@@ -26,6 +32,7 @@ CUDA card it exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -56,6 +63,28 @@ SCORES_TOL = 1e-4
 # so a sum-order difference can at most flip the rounding of an
 # intermediate or of the bf16 output (one ulp is 2**-6 at |x| in [2, 4))
 KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 6.25e-2}
+# the block backward against its plain version, norm-wise: ||a - b|| over
+# ||b|| of each output.  A ReLU whose pre-activation lies within rounding
+# of 0 can take the other branch in the kernel's replay than in the plain
+# version's, which moves a few elements of a weight grad by a whole term
+# (seen: 6.7e-3 of the output's largest |value| at T=10 in one run, 6.5e-7
+# in another, and up to 5.0e-4 norm-wise; in one run at T=10, 4.6e-4
+# norm-wise on the encoder's w1 where the float32 plain version stood
+# 5.0e-7 from the float64 one, the worst element's unit had a live
+# pre-activation of 5.6e-8: bwd_rounding_report prints this on every run);
+# 1e-2 norm-wise bounds that with room, where a wrong product or mask
+# gives errors of order 1.  In bfloat16 every product operand is rounded,
+# and a sum in another order flips roundings that add up over the batch,
+# so there both are held against the float32 plain version on the same
+# inputs: the kernel may be off by at most twice the plain version's error
+# (plus the float32 tolerance)
+BWD_TOL_F32 = 1e-2
+BWD_BF16_FACTOR = 2.0
+TRAIN_BATCH = 2048          # conf/dmt.conf batch_size
+CHECK_BATCH = 256           # the card-vs-CPU step
+DROPOUT = 0.1               # conf/dmt.conf transformer_dropout_rate
+KERNELS = ("fused_block_fwd", "fused_block_bwd", "sorted_segsum",
+           "update_rows")
 
 
 def log(msg: str) -> None:
@@ -130,10 +159,10 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def block_inputs(T: int, dtype, gen, device):
-    """Standard-normal enc_in [300, T, 80] and dec_in [300, 80], sequence
+def block_inputs(T: int, dtype, gen, device, B: int = CANDIDATES):
+    """Standard-normal enc_in [B, T, 80] and dec_in [B, 80], sequence
     lengths cycling through 0..T."""
-    B, D = CANDIDATES, 80
+    D = 80
     enc = (torch.randn(B, T, D, generator=gen, device=device)).to(dtype)
     dec = (torch.randn(B, D, generator=gen, device=device)).to(dtype)
     lens = torch.arange(B, device=device) % (T + 1)
@@ -148,32 +177,13 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return t_bytes * 1e3, "bytes"
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
-              "False); nothing was run", file=sys.stderr)
-        return 2
-    from cikm2020_dmt_torch.core.config import DMTConfig
+def serve_phase(cfg, dev) -> dict:
+    """The serving path, its checks and times; the fused block forward's
+    entry of the kernels line."""
     from cikm2020_dmt_torch.models.zoo import build_model
-    from cikm2020_dmt_torch.ops import _build, block
+    from cikm2020_dmt_torch.ops import block
     from cikm2020_dmt_torch.serve.export import Scorer, norm_constants
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)}")
-
-    # ---- build every kernel of the path, in parallel ----
-    t0 = time.perf_counter()
-    seconds = _build.build([block.KERNEL])
-    log(f"build: {json.dumps(seconds)} wall {time.perf_counter() - t0:.2f}s")
-    for line in _build.build_log(block.KERNEL).splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"  ptxas: {line.strip()}")
-
-    # ---- the flagship model at full width, random weights from a seed ----
-    cfg = DMTConfig.from_ini(CONF)
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = build_model(cfg).init(gen)
@@ -189,16 +199,17 @@ def main() -> int:
     requests = make_requests(cfg, CANDIDATES, REQUEST_LENS, SEED)
 
     # ---- the main path: three requests, counted ----
-    block.fused_encode_decode.launches = 0
+    reset_counts()
     card = [scorer(r) for r in requests]
     torch.cuda.synchronize()
     launches = block.fused_encode_decode.launches
-    log(f"main path: {len(requests)} requests of {CANDIDATES}, "
-        f"fused_block_fwd launches {launches}")
+    log(f"serving path: {len(requests)} requests of {CANDIDATES}, "
+        f"launches {json.dumps(read_counts())}")
     want = 3 * len(requests)
-    if launches != want:
-        raise AssertionError(f"fused_block_fwd launched {launches} times "
-                             f"on the main path, expected {want}")
+    if launches != want or any(v for k, v in read_counts().items()
+                               if k != "fused_block_fwd"):
+        raise AssertionError(f"serving launched {read_counts()}, expected "
+                             f"{want} fused_block_fwd and nothing else")
     for out in card:
         check_scores(out, CANDIDATES)
 
@@ -284,13 +295,8 @@ def main() -> int:
 
     b_ops = sum(s["flop"] * s["per_request"] for s in shapes)
     b_bytes = sum(s["bytes"] * s["per_request"] for s in shapes)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True, timeout=60).stdout.strip().splitlines()[0]
     log(f"request p50 {p50:.3f} ms")
-    print(smi)
-    print(json.dumps({"kernels": [{
+    return {
         "name": "fused_block_fwd",
         "route": "cuda",
         "source": "cikm2020_dmt_torch/csrc/fused_block_fwd.cu",
@@ -308,7 +314,660 @@ def main() -> int:
                         "LN, FF)",
         "unit": "ms per request: 2 launches at T=50 + 1 at T=10, B=300",
         "shapes": shapes,
-    }]}))
+    }
+
+
+def _counted():
+    from cikm2020_dmt_torch.ops import block, scatter_rows
+    return {"fused_block_fwd": block.fused_encode_decode,
+            "fused_block_bwd": block.fused_block_bwd,
+            "sorted_segsum": scatter_rows.sorted_segment_sum_rows,
+            "update_rows": scatter_rows.update_rows,
+            "update_rows_3d": scatter_rows.update_rows_3d}
+
+
+def reset_counts() -> None:
+    for fn in _counted().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in _counted().items()}
+
+
+def synthetic_batch(cfg, n: int, seed: int, device) -> dict:
+    """A training batch from a numpy seed: normal dense features, a one-hot
+    class mask, lengths 1..max_len and Zipf(1.3) ids (ranking traffic is
+    heavy-tailed), timestamps uniform up to 10**7."""
+    from cikm2020_dmt_torch.data.pipeline import IDS, LEN, WTS
+    from cikm2020_dmt_torch.data.schema import FeatureSchema
+
+    rng = np.random.default_rng(seed)
+    classes = sorted(c for c, _ in cfg.train_weight)
+    label = rng.choice([0, 0, 0, 1, 2, 4, 5], n)
+    mask = np.zeros((n, len(classes)), np.float32)
+    mask[np.arange(n), [classes.index(int(c)) for c in label]] = 1.0
+    b = {"features": rng.normal(size=(n, cfg.feature_dimension)
+                                ).astype(np.float32),
+         "valid": np.ones((n,), np.float32), "mask": mask}
+    ts_feats = set(cfg.attention_ts)
+    for f in FeatureSchema.from_config(cfg).id_features:
+        lens = rng.integers(1, f.max_len + 1, n).astype(np.int32)
+        if f.name in ts_feats:
+            ids = rng.integers(1, 10**7, (n, f.max_len))
+        else:
+            z = rng.zipf(1.3, (n, f.max_len)).astype(np.int64)
+            ids = (z * 2654435761) % max(1, f.id_size)
+        present = np.arange(f.max_len)[None, :] < lens[:, None]
+        b[f.name + IDS] = (ids * present).astype(np.int32)
+        b[f.name + WTS] = present.astype(np.float32)
+        b[f.name + LEN] = lens
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+def card_vs_cpu_step(cfg, dev) -> dict:
+    """One step at batch 256 with dropout off, on the card and on a CPU
+    copy of the same state.  Adam's first m is 0.1 g, so the gradients are
+    compared through it, norm-wise per leaf (a ReLU at the edge of 0 can
+    take the other branch on the card, which moves a few elements by a
+    whole term: see BWD_TOL_F32; the largest elementwise error is
+    printed): 1e-2 for float32 leaves, one bfloat16 step (2**-7) for the
+    bf16 tables, whose gradient is rounded to bf16 once after a float32 sum
+    taken in another order; leaves whose gradient is zero in exact
+    arithmetic (rounding noise only, below 1e-6 of the largest |g| of all
+    leaves) are skipped.  Params within 2 lr (the most one Adam step moves
+    an element whose near-zero gradient flips sign under another sum
+    order) plus, for bf16 tables, one bf16 step of the largest |value|;
+    and, since one Adam step moves an element by about lr whatever its
+    gradient (so a skipped, halved or doubled update would pass 2 lr),
+    the median |card - CPU| over the elements the CPU step moved below
+    1e-6, per leaf with a clear gradient.  v (0.001 g**2) within twice the
+    gradient's tolerance."""
+    from cikm2020_dmt_torch.metrics.streaming import task_metrics_init
+    from cikm2020_dmt_torch.nn.layers import tree_map
+    from cikm2020_dmt_torch.train.loop import Trainer
+
+    cfg0 = dataclasses.replace(
+        cfg, dropout_rate_bias=(0.0,) * len(cfg.dropout_rate_bias),
+        transformer=dataclasses.replace(cfg.transformer, dropout_rate=0.0))
+    t0 = time.perf_counter()
+    card, cpu = Trainer(cfg0, device=dev), Trainer(cfg0, device="cpu")
+    state = card.init_state(torch.Generator(device=dev).manual_seed(SEED))
+    state_cpu = tree_map(lambda t: t.cpu().clone(), state)
+    # the lazy tables are updated in place: keep the params before the step
+    before = tree_map(lambda t: t.clone(), state_cpu["params"])
+    batch = synthetic_batch(cfg, CHECK_BATCH, SEED + 10, dev)
+    s1, _, loss = card.train_step(state, task_metrics_init(dev), batch,
+                                  torch.Generator(device=dev))
+    s2, _, loss_cpu = cpu.train_step(
+        state_cpu, task_metrics_init(),
+        {k: v.cpu() for k, v in batch.items()}, torch.Generator())
+    torch.cuda.synchronize()
+    loss_err = abs(float(loss) - float(loss_cpu)) / abs(float(loss_cpu))
+    lr = cfg.learning_rate[0]
+    dtype_of = dict((p, t.dtype) for p, t in _leaves(s2["params"]))
+
+    def tol(path):
+        key = ("/emb/" + path.split("/")[1] if path.startswith("lazy/")
+               else path)
+        return 2.0 ** -7 if dtype_of[key] == torch.bfloat16 else BWD_TOL_F32
+
+    grads = [(p, a, b) for (p, a), (_, b) in zip(_leaves(s1["opt"]["m"]),
+                                                  _leaves(s2["opt"]["m"]))]
+    for name, sub in s1["lazy_opt"].items():
+        rows = torch.unique(batch_ids(cfg, batch, name)).cpu()
+        grads.append((f"lazy/{name}/m", sub["mv"][0].cpu()[rows],
+                      s2["lazy_opt"][name]["mv"][0][rows]))
+    top = max(float(b.abs().max()) for _, _, b in grads)
+    noise = set()
+    g_err = g_max = 0.0
+    for path, a, b in grads:
+        if float(b.abs().max()) < 1e-6 * top:
+            noise.add(path)
+            continue
+        d = a.cpu().float() - b.float()
+        err = float(d.norm() / b.float().norm())
+        g_err = max(g_err, err)
+        g_max = max(g_max, float(d.abs().max() / b.abs().max()))
+        if not err <= tol(path):
+            raise AssertionError(f"card vs CPU gradient {path}: norm-wise "
+                                 f"{err:.3e} (tol {tol(path)})")
+    p_err = p_med = 0.0
+    before = dict(_leaves(before))
+    for (path, a), (_, b) in zip(_leaves(s1["params"]),
+                                 _leaves(s2["params"])):
+        bf16 = b.dtype == torch.bfloat16
+        a, b = a.cpu().float(), b.float()
+        p_tol = 2 * lr + (2.0 ** -7 * float(b.abs().max()) if bf16
+                          else 0.0)
+        d = (a - b).abs()
+        err = float(d.max())
+        p_err = max(p_err, err / p_tol)
+        if not err <= p_tol:
+            raise AssertionError(f"card vs CPU param {path}: {err:.3e} "
+                                 f"(tol {p_tol:.3e})")
+        parts = path.split("/")
+        grad_path = (f"lazy/{parts[2]}/m" if parts[1] == "emb"
+                     and parts[2] in s1["lazy_opt"] else path)
+        moved = b != before[path].float()
+        if grad_path in noise or int(moved.sum()) == 0:
+            continue
+        med = float(d[moved].median())
+        p_med = max(p_med, med)
+        if not med <= 1e-6:
+            raise AssertionError(f"card vs CPU param {path}: median |diff| "
+                                 f"{med:.3e} over the moved elements "
+                                 "(tol 1e-6)")
+    v_pairs = [(p, a, b) for (p, a), (_, b) in zip(_leaves(s1["opt"]["v"]),
+                                                    _leaves(s2["opt"]["v"]))]
+    v_pairs += [(f"lazy/{n}/v", s["mv"][1].cpu(), s2["lazy_opt"][n]["mv"][1])
+                for n, s in s1["lazy_opt"].items()]
+    v_top = max(float(b.abs().max()) for _, _, b in v_pairs)
+    v_err = 0.0
+    for path, a, b in v_pairs:
+        if float(b.abs().max()) < 1e-6 * v_top:
+            continue
+        err = float((a.cpu() - b).norm() / b.norm())
+        v_err = max(v_err, err)
+        if not err <= 2 * tol(path):
+            raise AssertionError(f"card vs CPU moment {path}: {err:.3e}")
+    out = {"loss_rel_err": loss_err, "grad_err": g_err,
+           "grad_err_max": g_max, "param_err_over_tol": p_err,
+           "param_median_err": p_med, "v_err": v_err,
+           "seconds": time.perf_counter() - t0}
+    log(f"card vs CPU step, batch {CHECK_BATCH}, dropout off: loss "
+        f"{float(loss):.6f} vs {float(loss_cpu):.6f} (rel {loss_err:.2e}, "
+        f"tol 1e-4); grads norm-wise {g_err:.2e} (tol 1e-2 f32, 2**-7 bf16 "
+        f"tables), largest element {g_max:.2e} of its leaf's max; params "
+        f"{p_err:.3f} of 2 lr (+ bf16 step), largest per-leaf median "
+        f"{p_med:.2e} (tol 1e-6); v norm-wise {v_err:.2e}; "
+        f"{out['seconds']:.1f}s")
+    if not loss_err <= 1e-4:
+        raise AssertionError(f"card vs CPU loss: {loss_err}")
+    return out
+
+
+def batch_ids(cfg, batch, table):
+    from cikm2020_dmt_torch.data.pipeline import IDS
+    return torch.cat([batch[s.feature + IDS].reshape(-1).long()
+                      for s in cfg.embeddings if s.table == table])
+
+
+EXPECTED_PER_STEP = {"fused_block_fwd": 3, "fused_block_bwd": 3,
+                     "sorted_segsum": 1, "update_rows": 1,
+                     "update_rows_3d": 1}
+
+
+def train_phase(cfg, dev) -> dict:
+    """The training path at batch 2048 with dropout on: 3 warm-up steps,
+    10 timed steps (counted), then 20 steps on one batch whose loss must
+    fall.  Returns the step's numbers, and the trainer with its state,
+    metrics, dropout generator and batches for what runs after it."""
+    from cikm2020_dmt_torch.metrics.streaming import (task_metrics_init,
+                                                      task_metrics_values)
+    from cikm2020_dmt_torch.train.loop import Trainer
+
+    tr = Trainer(cfg, device=dev)
+    state = tr.init_state(torch.Generator(device=dev).manual_seed(SEED))
+    batches = [synthetic_batch(cfg, TRAIN_BATCH, SEED + 100 + i, dev)
+               for i in range(4)]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    metrics = task_metrics_init(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(3):
+        state, metrics, _ = tr.train_step(state, metrics, batches[i % 4], gen)
+    torch.cuda.synchronize()
+
+    # ---- the main path: 10 timed steps, counted ----
+    steps = 10
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    losses = []
+    for i in range(steps):
+        state, metrics, loss = tr.train_step(state, metrics,
+                                             batches[i % 4], gen)
+        losses.append(loss)
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    counts = read_counts()
+    step_ms = start.elapsed_time(end) / steps
+    eps = TRAIN_BATCH / (step_ms / 1e3)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    losses = [float(x) for x in losses]
+    log(f"training path: {steps} steps at batch {TRAIN_BATCH}, dropout "
+        f"{DROPOUT}: launches {json.dumps(counts)}")
+    log(f"training step: {step_ms:.3f} ms (CUDA events; host clock "
+        f"{wall_ms:.3f} ms), {eps:.1f} examples/s, peak memory "
+        f"{peak_gb:.2f} GB, losses {losses[0]:.4f}..{losses[-1]:.4f}, "
+        f"metrics {json.dumps(task_metrics_values(metrics))}")
+    for name, per in EXPECTED_PER_STEP.items():
+        if counts[name] != per * steps:
+            raise AssertionError(f"{name} launched {counts[name]} times in "
+                                 f"{steps} steps, expected {per} per step")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+
+    # ---- 20 steps on one batch: the loss falls ----
+    rep = []
+    for _ in range(20):
+        state, metrics, loss = tr.train_step(state, metrics, batches[0], gen)
+        rep.append(float(loss))
+    log(f"one batch, 20 steps: loss {rep[0]:.4f} -> {rep[-1]:.4f}")
+    if not (np.isfinite(rep).all() and np.mean(rep[-3:]) < rep[0]):
+        raise AssertionError(f"the loss did not fall on one batch: {rep}")
+    return {"counts": counts, "step_ms": step_ms, "wall_ms": wall_ms,
+            "examples_per_s": eps, "peak_gb": peak_gb, "trainer": tr,
+            "state": state, "metrics": metrics, "gen": gen,
+            "batches": batches}
+
+
+def _entry(name, source, replaces, launches, err, ms, plain, b, lib, **kw):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain, "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": lib, **kw}
+
+
+def _flat(bwd):
+    return (bwd[0], bwd[1]) + tuple(bwd[2])
+
+
+def _bwd_err(got, want):
+    """(largest norm-wise error ||a - b|| / ||b||, largest absolute error)
+    over the backward's outputs."""
+    pairs = [(a.float(), b.float()) for a, b in zip(_flat(got), _flat(want))]
+    rel = max(float((a - b).norm() / b.norm()) for a, b in pairs)
+    return rel, max(float((a - b).abs().max()) for a, b in pairs)
+
+
+BWD_OUTPUTS = ("d_enc", "d_dec") + tuple(
+    f"{side}.{w}" for side in ("enc", "dec")
+    for w in ("wqkv", "vecs", "w1", "b1", "w2"))
+
+
+def _ff_pre(ew, dw, kw, dtype):
+    """The ReLU pre-activations of the encoder's and the decoder's FF,
+    [B, T, F] and [B, F], and their inputs (the LN outputs h1, [B, T, D]
+    and [B, D]), replayed by the plain version in ``dtype`` with the same
+    dropout masks."""
+    from cikm2020_dmt_torch.ops import block
+
+    B, T, D = kw["enc_in"].shape
+    masks = block._masks(B, T, D, kw["num_heads"], kw["train"], kw["rate"],
+                         kw["seed"], kw["enc_in"].device)
+    e, d = (tuple(w.to(dtype) for w in ws) for ws in (ew, dw))
+    out = block._replay(e, d, kw["enc_in"].to(dtype), kw["dec_in"].to(dtype),
+                        kw["seq_mask"], kw["num_heads"], masks)
+    h1_e, h1_d = out[3][3], out[5][3][:, 0]
+    return h1_e @ e[2] + e[3], h1_d @ d[2] + d[3], h1_e, h1_d
+
+
+def _worst(A, B):
+    """(output, element, |A - B| there over the output's largest |B|) of
+    the largest such difference over the backward's outputs."""
+    rel = [float((a.double() - b.double()).abs().max() / b.double().abs().max())
+           for a, b in zip(A, B)]
+    i = max(range(len(rel)), key=rel.__getitem__)
+    j = int((A[i].double() - B[i].double()).abs().argmax())
+    return i, tuple(int(x) for x in torch.unravel_index(torch.tensor(j),
+                                                        A[i].shape)), rel[i]
+
+
+def _one_gate(A, B, i, idx, ff):
+    """A ReLU that takes the other branch in one replay than in the other
+    moves column u of the FF layer's dw1 by exactly one row's term
+    h1[row] * d(b1)[u].  For a worst element in w1 or b1 (unit u): how far
+    the A - B difference of that column is from the one row's term that
+    explains it best (relative to the difference), and that row's
+    pre-activation on u.  None elsewhere."""
+    name = BWD_OUTPUTS[i]
+    if name[4:] not in ("w1", "b1"):
+        return None
+    side = 0 if name.startswith("enc.") else 1
+    unit = idx[-1]
+    h1, pre = ff[side]
+    dcol = A[4 + 5 * side][:, unit].double() - B[4 + 5 * side][:, unit].double()
+    db = float(A[5 + 5 * side][unit].double() - B[5 + 5 * side][unit].double())
+    res = (dcol[None] - h1 * db).norm(dim=1)
+    r = int(res.argmin())
+    return float(res[r] / dcol.norm()), float(pre[r, unit])
+
+
+def bwd_rounding_report(ew, dw, kw, g, gb, rb) -> dict:
+    """Where the float32 backward kernel and its plain version part: both
+    against the plain version in float64 on the same inputs and masks
+    (norm-wise); how many live ReLUs lie on the other side of 0 in the
+    float32 replay than in the float64 one; and for each pair (kernel vs
+    float32 plain, float32 plain vs float64 plain) its worst element with
+    the values and, where it is in an FF layer's w1 or b1, the single ReLU
+    gate that explains it (``_one_gate``)."""
+    from cikm2020_dmt_torch.ops import block
+
+    kw64 = dict(kw, enc_in=kw["enc_in"].double(),
+                dec_in=kw["dec_in"].double())
+    r64 = block.fused_block_bwd_ref(tuple(w.double() for w in ew),
+                                    tuple(w.double() for w in dw),
+                                    g=g.double(), **kw64)
+    K, P, R = _flat(gb), _flat(rb), _flat(r64)
+    pre_e, pre_d, h1_e, h1_d = _ff_pre(ew, dw, kw, torch.float64)
+    pre_e32, pre_d32 = _ff_pre(ew, dw, kw, torch.float32)[:2]
+    live = kw["seq_mask"] > 0
+    ff = ((h1_e[live], pre_e[live]), (h1_d, pre_d))
+    out = {"kernel_vs_f64": _bwd_err(gb, r64)[0],
+           "plain_vs_f64": _bwd_err(rb, r64)[0],
+           "flips": int(((pre_e > 0) != (pre_e32 > 0))[live].sum()
+                        + ((pre_d > 0) != (pre_d32 > 0)).sum()),
+           "live_relus": int(live.sum()) * pre_e.shape[-1] + pre_d.numel()}
+    msg = (f"  backward rounding: norm-wise vs the float64 plain version, "
+           f"kernel {out['kernel_vs_f64']:.3e}, float32 plain "
+           f"{out['plain_vs_f64']:.3e}; live ReLUs on the other side of 0 "
+           f"in float32 than in float64: {out['flips']} of "
+           f"{out['live_relus']}")
+    for key, A, B in (("kernel_vs_plain", K, P), ("plain_vs_f64", P, R)):
+        i, idx, rel = _worst(A, B)
+        gate = _one_gate(A, B, i, idx, ff)
+        out[key + "_worst"] = {
+            "output": BWD_OUTPUTS[i], "index": idx, "rel": rel,
+            "values": [float(t[i][idx]) for t in (K, P, R)],
+            "one_gate_residual": gate and gate[0],
+            "gate_pre": gate and gate[1]}
+        msg += (f"\n    {key.replace('_', ' ')}: worst element "
+                f"{BWD_OUTPUTS[i]}{list(idx)}, {rel:.3e} of its output's "
+                f"max (kernel, plain, float64: "
+                f"{', '.join(f'{v:.7e}' for v in out[key + '_worst']['values'])})")
+        if gate is not None:
+            msg += (f"; one row's gate term explains its dw1 column to "
+                    f"{gate[0]:.3e}, that row's pre-activation {gate[1]:.3e}")
+    log(msg)
+    return out
+
+
+def block_train_phase(params, counts, dev):
+    """The block forward (training mode) and backward kernels against their
+    plain versions at B=2048, T=50 and 10, float32 and bfloat16, dropout
+    0.1, lengths 0..T; float32 (the main path's type) timed.  Returns the
+    forward's training shapes and the backward's entry."""
+    from cikm2020_dmt_torch.ops import block
+
+    kgen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    seed = torch.tensor([SEED + 3], dtype=torch.int32, device=dev)
+    fwd_shapes, bwd_shapes = [], []
+    fwd_err = bwd_err = 0.0
+    rounding = {}
+    for T, p in ((50, params["trans"]["seq0"]), (10, params["trans"]["seq2"])):
+        ep, dp = p["enc"][0], p["dec"][0]
+        ew, dw = block.pack_weights(ep), block.pack_weights(dp)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            kw = block_inputs(T, dtype, kgen, dev, B=TRAIN_BATCH)
+            kw.update(train=True, rate=DROPOUT, seed=seed)
+            with torch.no_grad():
+                got = block.fused_encode_decode(ep, dp, **kw)
+                ref = block.fused_encode_decode_ref(ep, dp, **kw)
+            g = torch.randn(got.shape, generator=kgen, device=dev).to(dtype)
+            gb = block.fused_block_bwd(ew, dw, g=g, **kw)
+            again = block.fused_block_bwd(ew, dw, g=g, **kw)
+            rb = block.fused_block_bwd_ref(ew, dw, g=g, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(_flat(gb),
+                                                         _flat(again))):
+                raise AssertionError(f"fused_block_bwd at T={T} {dname}: "
+                                     "two launches on the same inputs "
+                                     "differ")
+            del again
+            f_err = float((got.float() - ref.float()).abs().max())
+            rel, absd = _bwd_err(gb, rb)
+            if dtype == torch.float32:
+                tol, what = BWD_TOL_F32, "vs plain"
+                rounding[T] = bwd_rounding_report(ew, dw, kw, g, gb, rb)
+            else:
+                kw32 = dict(kw, enc_in=kw["enc_in"].float(),
+                            dec_in=kw["dec_in"].float())
+                r32 = block.fused_block_bwd_ref(ew, dw, g=g.float(), **kw32)
+                rel, _ = _bwd_err(gb, r32)
+                plain_rel, _ = _bwd_err(rb, r32)
+                tol = BWD_BF16_FACTOR * plain_rel + BWD_TOL_F32
+                what = (f"vs float32 plain (plain bf16 {plain_rel:.3e})")
+            log(f"block train B={TRAIN_BATCH} T={T} {dname}: forward max "
+                f"|diff| {f_err:.3e} (tol {KERNEL_TOL[dtype]}); backward "
+                f"max |diff| {absd:.3e}, norm-wise {rel:.3e} {what} (tol "
+                f"{tol:.3e})")
+            if not (torch.isfinite(got.float()).all()
+                    and f_err <= KERNEL_TOL[dtype]):
+                raise AssertionError(f"training forward disagrees: {f_err}")
+            if not all(torch.isfinite(t.float()).all() for t in _flat(gb)) \
+                    or not rel <= tol:
+                raise AssertionError(f"backward disagrees at T={T} {dname}: "
+                                     f"{rel}")
+            if dtype != torch.float32:
+                continue
+            fwd_err, bwd_err = max(fwd_err, f_err), max(bwd_err, absd)
+            with torch.no_grad():
+                f_ms = cuda_ms(lambda: block.fused_encode_decode(
+                    ep, dp, **kw), 10)
+                f_plain = cuda_ms(lambda: block.fused_encode_decode_ref(
+                    ep, dp, **kw), 3, warmup=1)
+            b_ms = cuda_ms(lambda: block.fused_block_bwd(ew, dw, g=g, **kw),
+                           5, warmup=1)
+            b_plain = cuda_ms(lambda: block.fused_block_bwd_ref(
+                ew, dw, g=g, **kw), 3, warmup=1)
+            per = 2 if T == 50 else 1
+            fb = bound(block.block_flops(TRAIN_BATCH, T, 80, 320),
+                       block.block_bytes(TRAIN_BATCH, T, 80, 320, 4))
+            bb = bound(block.block_bwd_flops(TRAIN_BATCH, T, 80, 320),
+                       block.block_bwd_bytes(TRAIN_BATCH, T, 80, 320, 4))
+            fwd_shapes.append({"B": TRAIN_BATCH, "T": T, "dtype": dname,
+                               "dropout": DROPOUT, "per_step": per,
+                               "ms": f_ms, "plain_ms": f_plain,
+                               "bound_ms": fb[0], "bound_by": fb[1]})
+            bwd_shapes.append({"B": TRAIN_BATCH, "T": T, "dtype": dname,
+                               "dropout": DROPOUT, "per_step": per,
+                               "ms": b_ms, "plain_ms": b_plain,
+                               "bound_ms": bb[0], "bound_by": bb[1]})
+            log(f"block train B={TRAIN_BATCH} T={T} f32: forward {f_ms:.4f} "
+                f"ms (plain {f_plain:.4f}, bound {fb[0]:.4f} {fb[1]}); "
+                f"backward {b_ms:.4f} ms (plain {b_plain:.4f}, bound "
+                f"{bb[0]:.4f} {bb[1]})")
+
+    def per_step(key):
+        return sum(s[key] * s["per_step"] for s in bwd_shapes)
+
+    ops = sum(block.block_bwd_flops(TRAIN_BATCH, s["T"], 80, 320)
+              * s["per_step"] for s in bwd_shapes)
+    nbytes = sum(block.block_bwd_bytes(TRAIN_BATCH, s["T"], 80, 320, 4)
+                 * s["per_step"] for s in bwd_shapes)
+    bwd = _entry(
+        "fused_block_bwd", "cikm2020_dmt_torch/csrc/fused_block_bwd.cu",
+        "cikm2020_dmt_tpu/ops/block.py:386", counts["fused_block_bwd"],
+        bwd_err, per_step("ms"), per_step("plain_ms"), bound(ops, nbytes),
+        None,
+        library_note="no single PyTorch call computes the block's backward "
+                     "(autograd of the plain version is dozens of calls)",
+        unit="ms per training step: 2 launches at T=50 + 1 at T=10, "
+             "B=2048, f32, dropout 0.1",
+        shapes=bwd_shapes, deterministic=True, rounding=rounding)
+    return fwd_shapes, fwd_err, bwd
+
+
+def segsum_phase(cfg, tr, state, batch, counts, dev):
+    """The segment sum against its plain version on the union of a real
+    training batch (N = 2048 x 111 ids, D=32), bfloat16 (the main path's
+    grid type) and float32, and with the budget overflowed."""
+    from cikm2020_dmt_torch.ops import scatter_rows as sr
+    from cikm2020_dmt_torch.train.lazy import collect
+
+    spec = next(t for t in tr.lazy_plan if t.name == "Sku")
+    table = state["params"]["emb"]["Sku"]
+    col = collect(spec, batch, table, cfg.dedup_budget_div)
+    over = collect(spec, batch, table, 64)
+    N, U = col.ids.numel(), col.uids.numel()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    err = 0.0
+    for c, dtype in ((col, torch.bfloat16), (col, torch.float32),
+                     (over, torch.bfloat16)):
+        num = c.uids.numel() + 1
+        g = torch.randn(N, 32, generator=gen, device=dev).to(dtype)
+        got = sr.sorted_segment_sum_rows(g, c.order, c.seg_sorted, num)
+        want = sr.sorted_segment_sum_rows_ref(g, c.order, c.seg_sorted, num)
+        torch.cuda.synchronize()
+        # float32 sums of up to ~10**5 rows (the padding id's run) taken
+        # in another order: the error scales with the sum of |g| of a run
+        mag = sr.sorted_segment_sum_rows_ref(g.abs(), c.order, c.seg_sorted,
+                                             num)
+        d = (got - want).abs()
+        ok = bool((d <= 1e-6 * mag + 1e-6).all())
+        log(f"sorted_segsum N={N} D=32 {str(dtype).split('.')[-1]} "
+            f"U={num - 1} overflow={int(c.overflow)}: max |diff| "
+            f"{float(d.max()):.3e}, {float((d / (mag + 1e-30)).max()):.3e} "
+            f"of the run's sum of |g| (tol 1e-6)")
+        if not ok:
+            raise AssertionError("sorted_segsum disagrees with its plain "
+                                 "version")
+        err = max(err, float(d.max()))
+    if int(over.overflow) <= 0:
+        raise AssertionError("the overflow case did not overflow")
+    g = torch.randn(N, 32, generator=gen, device=dev).to(torch.bfloat16)
+    g32 = g.float()
+    num = U + 1
+    ms = cuda_ms(lambda: sr.sorted_segment_sum_rows(
+        g, col.order, col.seg_sorted, num), 50)
+    plain = cuda_ms(lambda: sr.sorted_segment_sum_rows_ref(
+        g, col.order, col.seg_sorted, num), 20)
+    lib = cuda_ms(lambda: torch.zeros(num, 32, device=dev).index_add_(
+        0, col.pos, g32), 20)
+    b = bound(0, sr.segsum_bytes(N, 32, 2, num))
+    log(f"sorted_segsum N={N} bf16: kernel {ms:.4f} ms, plain {plain:.4f} "
+        f"ms, index_add_ {lib:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+    entry = _entry(
+        "sorted_segsum", "cikm2020_dmt_torch/csrc/sorted_segsum.cu",
+        "cikm2020_dmt_tpu/ops/scatter_rows.py:169", counts["sorted_segsum"],
+        err, ms, plain, b, lib,
+        library_note="torch.zeros(U+1, 32).index_add_(0, pos, g) on the "
+                     "float32 rows (index_add_ on the bf16 rows would sum in "
+                     "bf16)",
+        shape={"N": N, "D": 32, "dtype": "bfloat16", "num_out": num})
+    return entry, col
+
+
+def update_phase(state, col, counts, dev):
+    """The row writes against their plain versions at the main path's
+    shapes: the bf16 [5M, 32] Sku table with U rows (sentinels and five
+    negative ids among them) and its float32 [2, 5M, 32] moments with 2U
+    rows; compared exactly."""
+    from cikm2020_dmt_torch.ops import scatter_rows as sr
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    table = state["params"]["emb"]["Sku"]
+    R, U = table.shape[0], col.uids.numel()
+    ids = col.uids.clone()
+    ids[:5] = -1 - torch.arange(5, device=dev)
+    keep = (ids >= 0) & (ids < R)
+    rows = torch.randn(U, 32, generator=gen, device=dev).to(table.dtype)
+    ids2 = torch.cat([torch.where(keep, ids, 2 * R),
+                      torch.where(keep, ids + R, 2 * R)])
+    keep2 = ids2 < 2 * R
+    rows2 = torch.randn(2 * U, 32, generator=gen, device=dev)
+    entries = []
+    for name, fn, ref, dst, i, r, k, elem, src, replaces in (
+            ("update_rows", sr.update_rows, sr.update_rows_ref, table, ids,
+             rows, keep, 2, "update_rows.cu",
+             "cikm2020_dmt_tpu/ops/scatter_rows.py:45"),
+            ("update_rows_3d", sr.update_rows_3d, sr.update_rows_3d_ref,
+             state["lazy_opt"]["Sku"]["mv"], ids2, rows2, keep2, 4,
+             "update_rows.cu", "scripts/probe_mv3d_tpu.py:25")):
+        a, b = dst.clone(), dst.clone()
+        fn(a, i, r)
+        ref(b, i, r)
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name} disagrees with its plain version")
+        flat = b.view(-1, 32)
+        iv, rv = i[k], r[k]
+        ms = cuda_ms(lambda: fn(a, i, r), 50)
+        plain = cuda_ms(lambda: ref(b, i, r), 20)
+        lib = cuda_ms(lambda: flat.index_put_((iv,), rv), 20)
+        n = int(k.sum())
+        bd = bound(0, sr.update_rows_bytes(n, 32, elem))
+        log(f"{name} {tuple(dst.shape)} {str(dst.dtype).split('.')[-1]}, "
+            f"{i.numel()} ids ({n} written): exact; kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, index_put_ {lib:.4f} ms, bound "
+            f"{bd[0]:.4f} ms ({bd[1]})")
+        entries.append(_entry(
+            name, "cikm2020_dmt_torch/csrc/" + src, replaces, counts[name],
+            0.0, ms, plain, bd, lib,
+            library_note="table[ids_valid] = rows_valid (index_put_), the "
+                         "valid ids selected beforehand",
+            shape={"table": list(dst.shape), "ids": i.numel(),
+                   "written": n}))
+        del a, b
+    return entries
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
+              "False); nothing was run", file=sys.stderr)
+        return 2
+    from cikm2020_dmt_torch.core.config import DMTConfig
+    from cikm2020_dmt_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+
+    # ---- build every kernel, one nvcc per source, in parallel ----
+    t0 = time.perf_counter()
+    seconds = _build.build(KERNELS)
+    log(f"build: {json.dumps(seconds)} wall {time.perf_counter() - t0:.2f}s")
+    for name in KERNELS:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+    cfg = DMTConfig.from_ini(CONF)
+    fwd = serve_phase(cfg, dev)
+    torch.cuda.empty_cache()
+    card_vs_cpu_step(cfg, dev)
+    torch.cuda.empty_cache()
+    train = train_phase(cfg, dev)
+    counts = train["counts"]
+    fwd_shapes, fwd_err, bwd = block_train_phase(train["state"]["params"],
+                                                 counts, dev)
+    serve_launches = fwd["launches"]
+    fwd.update(launches=serve_launches + counts["fused_block_fwd"],
+               max_abs_err=max(fwd["max_abs_err"], fwd_err),
+               launches_by_path={"serve": serve_launches,
+                                 "train": counts["fused_block_fwd"]},
+               train_shapes=fwd_shapes)
+    seg, col = segsum_phase(cfg, train["trainer"], train["state"],
+                            train["batches"][0], counts, dev)
+    rows = update_phase(train["state"], col, counts, dev)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip().splitlines()[0]
+    log(f"training step {train['step_ms']:.3f} ms, "
+        f"{train['examples_per_s']:.1f} examples/s at batch {TRAIN_BATCH}")
+    print(smi)
+    print(json.dumps({"kernels": [fwd, bwd, seg] + rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,4 +1,4 @@
-"""JAX param trees -> the port's param trees.
+"""JAX param trees and train states -> the port's.
 
 The reference's params are nested dicts and lists of arrays; the port's
 have the same keys and the same leaf layouts, so converting is a copy of
@@ -11,6 +11,11 @@ The input holds numpy arrays (``jax.tree_util.tree_map(np.asarray, ...)``
 of a JAX ``model.init`` or checkpoint); bfloat16 arrays may come as
 ``ml_dtypes.bfloat16`` numpy arrays and keep that dtype here.  Every leaf
 is carried, the bias net's included.
+
+``train_state_from_jax`` carries a JAX ``Trainer`` state across: the
+params, optax Adam's ``mu``/``nu``/``count`` (tables unpacked like the
+params), and the lazy-Adam moments, which JAX stores flat as [2 R_phys, w]
+(m in rows [0, R_phys)) and the port as [2, R, D].
 """
 
 from __future__ import annotations
@@ -38,25 +43,31 @@ def tree_to_tensors(tree, device="cpu"):
     return tree_map(lambda a: to_tensor(a, device), tree)
 
 
-def _tables(tables: dict, specs: tuple[EmbeddingSpec, ...], device) -> dict:
-    """Each table to logical ``[rows, dim]``, unpacking packed storage."""
+def _shapes(specs: tuple[EmbeddingSpec, ...]) -> dict:
     shape_of = {}
     for spec in specs:
         shape_of.setdefault(spec.table, (spec.id_size, spec.dim))
-    out = {}
-    for name, arr in tables.items():
-        arr = np.asarray(arr)
-        rows, dim = shape_of[name]
-        p = pack_factor(dim)
-        if arr.shape == (rows, dim):
-            logical = arr
-        elif p > 1 and arr.shape == (-(-rows // p), p * dim):
-            logical = unpack_table(arr, rows, dim)
-        else:
-            raise ValueError(f"table {name!r}: shape {arr.shape} is neither "
-                             f"logical ({rows}, {dim}) nor its packed form")
-        out[name] = to_tensor(logical, device)
-    return out
+    return shape_of
+
+
+def _logical(name: str, arr, rows: int, dim: int):
+    """One table's rows as logical ``[rows, dim]``, unpacking packed
+    storage."""
+    arr = np.asarray(arr)
+    p = pack_factor(dim)
+    if arr.shape == (rows, dim):
+        return arr
+    if p > 1 and arr.shape == (-(-rows // p), p * dim):
+        return unpack_table(arr, rows, dim)
+    raise ValueError(f"table {name!r}: shape {arr.shape} is neither "
+                     f"logical ({rows}, {dim}) nor its packed form")
+
+
+def _tables(tables: dict, specs: tuple[EmbeddingSpec, ...], device) -> dict:
+    """Each table to logical ``[rows, dim]``, unpacking packed storage."""
+    shape_of = _shapes(specs)
+    return {name: to_tensor(_logical(name, arr, *shape_of[name]), device)
+            for name, arr in tables.items()}
 
 
 def params_from_jax(cfg: DMTConfig, params, device="cpu") -> dict:
@@ -72,3 +83,36 @@ def params_from_jax(cfg: DMTConfig, params, device="cpu") -> dict:
         out["bias_net"]["emb"] = _tables(bias["emb"], cfg.embeddings_bias,
                                          device)
     return out
+
+
+def _lazy_moments(name: str, mv, rows: int, dim: int, device):
+    """JAX lazy-Adam moments -> [2, rows, dim] float32: flat [2 R_phys, w]
+    (m in the first half of the rows) or already stacked [2, R_phys, w]."""
+    mv = np.asarray(mv)
+    halves = mv if mv.ndim == 3 else mv.reshape(2, mv.shape[0] // 2, -1)
+    return to_tensor(np.stack([_logical(name, h, rows, dim)
+                               for h in halves]), device)
+
+
+def train_state_from_jax(cfg: DMTConfig, state, device="cpu") -> dict:
+    """A JAX ``Trainer`` state (numpy leaves, the tree of
+    ``Trainer.init_state``) -> the port's ``Trainer`` state on
+    ``device``."""
+    adam = state["opt_state"][0]   # optax ScaleByAdamState(count, mu, nu)
+    shape_of = _shapes(cfg.embeddings)
+
+    def scalar(x):
+        return torch.tensor(int(np.asarray(x)), dtype=torch.int64,
+                            device=device)
+
+    return {
+        "params": params_from_jax(cfg, state["params"], device),
+        "opt": {"m": params_from_jax(cfg, adam.mu, device),
+                "v": params_from_jax(cfg, adam.nu, device),
+                "count": scalar(adam.count)},
+        "lazy_opt": {name: {"mv": _lazy_moments(name, sub["mv"],
+                                                *shape_of[name], device)}
+                     for name, sub in state.get("lazy_opt", {}).items()},
+        "step": scalar(state["step"]),
+        "lazy_overflow": scalar(state.get("lazy_overflow", 0)),
+    }

@@ -1,16 +1,21 @@
-// Fused Deep-Interest-Transformer block forward (eval mode), one CUDA block
-// per example.
+// Fused Deep-Interest-Transformer block forward, one CUDA block per example.
 //
 // Replaces the TPU kernel cikm2020_dmt_tpu/ops/block.py `_make_fwd_kernel`
-// (launched through `_fwd_call`, entry `fused_encode_decode`) with
-// train=False: no dropout.  For each example b:
+// (launched through `_fwd_call`, entry `fused_encode_decode`).  For each
+// example b:
 //
-//   encoder:  QKV = E0 @ wqkv + bqkv                      E0 = enc[b] [T, D]
+//   encoder:  E0 = enc[b] [T, D] * dropout mask (training)
+//             QKV = E0 @ wqkv + bqkv
 //             per head h: P = softmax(mask_k(Q_h K_h^T * scale)) * mask_q
+//                            * dropout mask (training)
 //             h1 = LN1(P V + E0);  f = relu(h1 @ w1 + b1)
 //             H2 = LN2(f @ w2 + b2 + h1)
-//   decoder:  the single query D0 = dec[b] [D] runs the same steps against
-//             H2 (keys masked, no query mask) -> out[b] [D]
+//   decoder:  the single query D0 = dec[b] [D] (dropped out in training)
+//             runs the same steps against H2 (keys masked, no query mask,
+//             probabilities dropped out in training) -> out[b] [D]
+//
+// Dropout masks come from the hash in dropout.cuh, bit for bit the masks of
+// ops/block.py `dropout_mask`; the seed is read from device memory.
 //
 // Masked keys score -2^32+1, not -inf, so a sequence with every key masked
 // gets a uniform softmax over its T keys instead of NaN.  The sequence is
@@ -36,80 +41,12 @@
 #include <cfloat>
 #include <type_traits>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "block_common.cuh"
+#include "dropout.cuh"
+
 namespace {
-
-constexpr int kThreads = 512;
-constexpr int kRowsPerThread = 4;
-constexpr float kNegInf = -4294967295.0f;  // -(2^32) + 1, the reference pad
-constexpr float kLnEps = 1e-8f;
-
-template <bool BF16>
-__device__ __forceinline__ float rnd(float x) {
-  if constexpr (BF16) {
-    return __bfloat162float(__float2bfloat16(x));
-  } else {
-    return x;
-  }
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// out[r, j] = act(sum_k rnd(in[r, k]) * rnd(W[k, j]) + bias[j]), r < rows,
-// j < cols; in and out in shared memory, W and bias in global memory.
-template <bool BF16>
-__device__ void matmul(const float* in, int ldi, int rows, int K,
-                       const float* __restrict__ W, int ldw,
-                       const float* __restrict__ bias, int cols, float* out,
-                       int ldo, bool relu, bool round_out) {
-  constexpr int RT = kRowsPerThread;
-  const int groups = (rows + RT - 1) / RT;
-  for (int idx = threadIdx.x; idx < groups * cols; idx += blockDim.x) {
-    const int j = idx % cols;
-    const int r0 = (idx / cols) * RT;
-    const int nr = min(RT, rows - r0);
-    float acc[RT];
-#pragma unroll
-    for (int r = 0; r < RT; ++r) acc[r] = 0.f;
-    const float* x = in + r0 * ldi;
-    for (int k = 0; k < K; ++k) {
-      const float w = rnd<BF16>(__ldg(W + static_cast<size_t>(k) * ldw + j));
-#pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        if (r < nr) acc[r] = fmaf(rnd<BF16>(x[r * ldi + k]), w, acc[r]);
-      }
-    }
-    const float b = __ldg(bias + j);
-#pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      if (r < nr) {
-        float v = acc[r] + b;
-        if (relu) v = fmaxf(v, 0.f);
-        out[(r0 + r) * ldo + j] = round_out ? rnd<BF16>(v) : v;
-      }
-    }
-  }
-}
 
 // x[r] = LN(x[r] + add[r]) * gamma + beta for each row r < rows; one warp
 // per row, float32 statistics, population variance, eps inside the sqrt.
@@ -139,11 +76,13 @@ __device__ void add_layer_norm(float* x, const float* add, int rows, int n,
 }
 
 // Row softmax in place over rows of length n; row r is then scaled by
-// qmask[r % qmod] (qmask null: no query mask) and rounded to the compute
-// dtype, since probabilities only feed the P @ V product.
+// qmask[r % qmod] (qmask null: no query mask) and by the dropout mask of
+// head r / qmod, query r % qmod, and rounded to the compute dtype, since
+// probabilities only feed the P @ V product.
 template <bool BF16>
 __device__ void softmax_rows(float* s, int rows, int n, const float* qmask,
-                             int qmod) {
+                             int qmod, const Dropout& drop, unsigned site,
+                             unsigned b) {
   const int lane = threadIdx.x & 31;
   for (int r = threadIdx.x >> 5; r < rows; r += blockDim.x >> 5) {
     float* sr = s + r * n;
@@ -158,17 +97,12 @@ __device__ void softmax_rows(float* s, int rows, int n, const float* qmask,
     }
     sum = warp_sum(sum);
     const float q = qmask ? qmask[r % qmod] : 1.f;
-    for (int i = lane; i < n; i += 32) sr[i] = rnd<BF16>(sr[i] / sum * q);
+    const unsigned ex =
+        drop.on ? drop.example(site * 16 + r / qmod, b) : 0u;
+    for (int i = lane; i < n; i += 32)
+      sr[i] = rnd<BF16>(sr[i] / sum * q * drop.scale_at(ex, r % qmod, i));
   }
 }
-
-struct Weights {
-  const float* wqkv;  // [D, 3D]
-  const float* vecs;  // [8, D]
-  const float* w1;    // [D, F]
-  const float* b1;    // [F]
-  const float* w2;    // [F, D]
-};
 
 inline size_t smem_floats(int T, int D, int F, int H) {
   const size_t tt = static_cast<size_t>(H) * T * T;
@@ -189,7 +123,7 @@ __global__ void __launch_bounds__(kThreads)
                            const TIn* __restrict__ dec,
                            const float* __restrict__ mask, Weights ew,
                            Weights dw, TIn* __restrict__ out, int T, int D,
-                           int F, int H, float scale) {
+                           int F, int H, float scale, Dropout drop) {
   constexpr bool BF16 = !std::is_same<TIn, float>::value;
   extern __shared__ float smem[];
   const int b = blockIdx.x;
@@ -214,10 +148,15 @@ __global__ void __launch_bounds__(kThreads)
   float* sd = fd + F;
 
   // ---- load ----
+  if (drop.on) drop.load_seed();
   const TIn* e = enc + static_cast<size_t>(b) * T * D;
-  for (int i = threadIdx.x; i < T * D; i += blockDim.x) X[i] = to_float(e[i]);
+  const unsigned ex_e = drop.on ? drop.example(kSiteEncIn, b) : 0u;
+  const unsigned ex_d = drop.on ? drop.example(kSiteDecIn, b) : 0u;
+  for (int i = threadIdx.x; i < T * D; i += blockDim.x)
+    X[i] = to_float(e[i]) * drop.scale_at(ex_e, i / D, i % D);
   for (int i = threadIdx.x; i < D; i += blockDim.x)
-    d0[i] = to_float(dec[static_cast<size_t>(b) * D + i]);
+    d0[i] = to_float(dec[static_cast<size_t>(b) * D + i]) *
+            drop.scale_at(ex_d, 0, i);
   for (int i = threadIdx.x; i < T; i += blockDim.x)
     km[i] = mask[static_cast<size_t>(b) * T + i];
   __syncthreads();
@@ -238,7 +177,7 @@ __global__ void __launch_bounds__(kThreads)
     SF[idx] = km[k] > 0.f ? s * scale : kNegInf;
   }
   __syncthreads();
-  softmax_rows<BF16>(SF, H * T, T, km, T);
+  softmax_rows<BF16>(SF, H * T, T, km, T, drop, kSiteEncProbs, b);
   __syncthreads();
 
   // ctx = P V -> C
@@ -279,7 +218,7 @@ __global__ void __launch_bounds__(kThreads)
     sd[idx] = km[k] > 0.f ? s * scale : kNegInf;
   }
   __syncthreads();
-  softmax_rows<BF16>(sd, H, T, nullptr, 1);
+  softmax_rows<BF16>(sd, H, T, nullptr, 1, drop, kSiteDecProbs, b);
   __syncthreads();
 
   for (int j = threadIdx.x; j < D; j += blockDim.x) {
@@ -308,7 +247,8 @@ __global__ void __launch_bounds__(kThreads)
 template <typename TIn>
 cudaError_t launch(const void* enc, const void* dec, const void* mask,
                    Weights ew, Weights dw, void* out, int B, int T, int D,
-                   int F, int H, float scale, cudaStream_t stream) {
+                   int F, int H, float scale, Dropout drop,
+                   cudaStream_t stream) {
   const size_t bytes = smem_floats(T, D, F, H) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       fused_block_fwd_kernel<TIn>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -317,7 +257,7 @@ cudaError_t launch(const void* enc, const void* dec, const void* mask,
   fused_block_fwd_kernel<TIn><<<B, kThreads, bytes, stream>>>(
       static_cast<const TIn*>(enc), static_cast<const TIn*>(dec),
       static_cast<const float*>(mask), ew, dw, static_cast<TIn*>(out), T, D,
-      F, H, scale);
+      F, H, scale, drop);
   return cudaGetLastError();
 }
 
@@ -340,16 +280,19 @@ int fused_block_fwd(const void* enc, const void* dec, const void* mask,
                     const void* e_b1, const void* e_w2, const void* d_wqkv,
                     const void* d_vecs, const void* d_w1, const void* d_b1,
                     const void* d_w2, void* out, int B, int T, int D, int F,
-                    int H, float scale, int is_bf16, void* stream) {
+                    int H, float scale, int is_bf16, const void* seed,
+                    int train, int keep_thr, float drop_scale,
+                    void* stream) {
   if (B == 0) return 0;
+  const Dropout drop = make_dropout(seed, train, keep_thr, drop_scale);
   const Weights ew = weights(e_wqkv, e_vecs, e_w1, e_b1, e_w2);
   const Weights dw = weights(d_wqkv, d_vecs, d_w1, d_b1, d_w2);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       is_bf16 ? launch<__nv_bfloat16>(enc, dec, mask, ew, dw, out, B, T, D, F,
-                                      H, scale, s)
+                                      H, scale, drop, s)
               : launch<float>(enc, dec, mask, ew, dw, out, B, T, D, F, H,
-                              scale, s);
+                              scale, drop, s);
   return static_cast<int>(err);
 }
 

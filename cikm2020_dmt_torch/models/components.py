@@ -1,7 +1,7 @@
-"""Shared model components, eval path: feature combiner, behavior-sequence
-interest, stacked MMoE and task towers (``cikm2020_dmt_tpu/models/
-components.py``).  The bias net's params are initialised and carried so the
-tree matches the reference, but serving never runs it."""
+"""Shared model components: feature combiner, behavior-sequence interest,
+stacked MMoE, task towers and the bias net
+(``cikm2020_dmt_tpu/models/components.py``).  ``train`` turns dropout on;
+its randomness comes from the caller's ``torch.Generator``."""
 
 from __future__ import annotations
 
@@ -13,8 +13,8 @@ from ..core.config import DMTConfig
 from ..data.pipeline import IDS, LEN, WTS
 from ..nn.embedding import (collection_init, pooled_from_grid, presence_mask,
                             ts_bucketize)
-from ..nn.layers import (Params, dense_apply, dense_init, glorot_uniform,
-                         mlp_apply, mlp_init)
+from ..nn.layers import (Params, dense_apply, dense_init, dropout_keep,
+                         dropout_rate, glorot_uniform, mlp_apply, mlp_init)
 from ..nn.transformer import encode_decode, transformer_init
 from ..parallel.embedding_shard import DENSE_ENGINE, EmbeddingEngine
 
@@ -68,7 +68,7 @@ def embedding_combiner(emb: Params, batch: dict, cfg: DMTConfig, *,
             pooled = pooled_from_grid(seq_cache[spec.feature], wts, lens)
         else:
             pooled = engine.pooled(spec.table, emb[spec.table], ids, wts,
-                                   lens)
+                                   lens, feature=spec.feature)
         if spec.feature in sim_wanted:
             sim_pool[spec.feature] = pooled
         parts.append(pooled)
@@ -128,7 +128,9 @@ def zero_pad_rows(ids: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
 def sequence_interest(params: Params, emb: Params, batch: dict,
                       cfg: DMTConfig, *,
                       engine: EmbeddingEngine = DENSE_ENGINE,
-                      dtype: Optional[torch.dtype] = None
+                      dtype: Optional[torch.dtype] = None,
+                      train: bool = False,
+                      gen: Optional[torch.Generator] = None
                       ) -> tuple[torch.Tensor, dict]:
     """Concat of per-sequence user-interest states [B, n_seq * d_model],
     and the raw (not zero-padded) gathered grids by feature, which the
@@ -146,12 +148,14 @@ def sequence_interest(params: Params, emb: Params, batch: dict,
         for user_feat, item_feat in group:
             uspec, ispec = spec_of[user_feat], spec_of[item_feat]
             uids = batch[user_feat + IDS]
-            raw_u = engine.seq(uspec.table, emb[uspec.table], uids)
+            raw_u = engine.seq(uspec.table, emb[uspec.table], uids,
+                               feature=user_feat)
             cache[user_feat] = raw_u
             seq_parts.append(zero_pad_rows(uids, raw_u) if cfg.zero_pad
                              else raw_u)
             iids = batch[item_feat + IDS]
-            raw_i = engine.seq(ispec.table, emb[ispec.table], iids)
+            raw_i = engine.seq(ispec.table, emb[ispec.table], iids,
+                               feature=item_feat)
             cache[item_feat] = raw_i
             tar = zero_pad_rows(iids, raw_i) if cfg.zero_pad else raw_i
             tar_parts.append(tar[:, 0, :])  # single-id item feature
@@ -166,7 +170,8 @@ def sequence_interest(params: Params, emb: Params, batch: dict,
             tspec = spec_of.get(ts_feat)
             if tspec is not None:
                 buckets = ts_bucketize(batch[ts_feat + IDS], tspec.id_size)
-                raw_ts = engine.seq(tspec.table, emb[tspec.table], buckets)
+                raw_ts = engine.seq(tspec.table, emb[tspec.table], buckets,
+                                    feature=ts_feat)
                 cache[ts_feat] = raw_ts
                 ts_emb = (zero_pad_rows(buckets, raw_ts) if cfg.zero_pad
                           else raw_ts)
@@ -180,7 +185,8 @@ def sequence_interest(params: Params, emb: Params, batch: dict,
         else:
             tar_in = tar_emb
         state = encode_decode(p, tc, seq_emb=seq_emb, seq_mask=mask,
-                              tar_emb=tar_in, ts_emb=ts_emb)
+                              tar_emb=tar_in, ts_emb=ts_emb, train=train,
+                              gen=gen)
         if tc.is_trans_out_concat_item:
             state = torch.cat([state, tar_in], dim=-1)
             if tc.is_trans_out_by_mlp:
@@ -206,22 +212,33 @@ def mmoe_init(gen: torch.Generator, in_dim: int, cfg: DMTConfig,
     }
 
 
-def mmoe_apply(params: Params, x: torch.Tensor) -> list[torch.Tensor]:
+def mmoe_apply(params: Params, x: torch.Tensor, cfg: DMTConfig, *,
+               train: bool = False,
+               gen: Optional[torch.Generator] = None) -> list[torch.Tensor]:
     """Per-task mixtures [B, hidden_bottom[-1]]: all experts in batched
     matmuls (layer 0 as one [in, E * H0] product, deeper layers batched
-    over the expert axis), both gates in one product."""
+    over the expert axis), both gates in one product.  In training with
+    ``is_dropout``, expert layer i keeps with ``dropout_bottom[i]``."""
     experts = params["experts"]
     E = len(experts)
+
+    def maybe_dropout(y, i):
+        kp = cfg.dropout_bottom[i] if i < len(cfg.dropout_bottom) else 1.0
+        if cfg.is_dropout and train and kp < 1.0:
+            return dropout_keep(gen, y, kp)
+        return y
+
     w0 = torch.cat([p["layer0"]["dense"]["w"] for p in experts], dim=1)
     b0 = torch.cat([p["layer0"]["dense"]["b"] for p in experts])
     y = torch.relu(x @ w0.to(x.dtype) + b0.to(x.dtype))
-    y = y.reshape(x.shape[0], E, -1)                       # [B, E, H0]
+    y = maybe_dropout(y.reshape(x.shape[0], E, -1), 0)     # [B, E, H0]
     n_layers = sum(1 for k in experts[0] if k.startswith("layer"))
     for i in range(1, n_layers):
         wi = torch.stack([p[f"layer{i}"]["dense"]["w"] for p in experts])
         bi = torch.stack([p[f"layer{i}"]["dense"]["b"] for p in experts])
-        y = torch.relu(torch.einsum("beh,ehk->bek", y, wi.to(y.dtype))
-                       + bi[None].to(y.dtype))
+        y = maybe_dropout(torch.relu(
+            torch.einsum("beh,ehk->bek", y, wi.to(y.dtype))
+            + bi[None].to(y.dtype)), i)
     experts_out = y.transpose(1, 2)                        # [B, H, E]
     gates = params["gates"]
     wg = torch.cat([g["w"] for g in gates], dim=1)
@@ -240,12 +257,15 @@ def tower_init(gen: torch.Generator, in_dim: int, cfg: DMTConfig,
                     out_bias_init=0.1, dtype=dtype)
 
 
-def tower_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
-    return mlp_apply(params, x)
+def tower_apply(params: Params, x: torch.Tensor, cfg: DMTConfig, *,
+                train: bool = False,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    return mlp_apply(params, x, keep_probs=cfg.dropout_task, train=train,
+                     is_dropout=cfg.is_dropout, gen=gen)
 
 
 # ---------------------------------------------------------------------------
-# Bias net (params only: serving drops the bias head)
+# Bias net (training only: serving drops the bias head)
 # ---------------------------------------------------------------------------
 
 
@@ -259,3 +279,27 @@ def bias_net_init(gen: torch.Generator, cfg: DMTConfig,
                             cfg.output_units, out_bias_init=0.0,
                             hidden_bias_init=0.0, w_init=glorot_uniform(),
                             dtype=dtype)}
+
+
+def bias_net_apply(params: Params, batch: dict, cfg: DMTConfig, *,
+                   train: bool = False,
+                   gen: Optional[torch.Generator] = None,
+                   engine: EmbeddingEngine = DENSE_ENGINE) -> torch.Tensor:
+    """Bias logit [B, 1] from the position / neighbour-exposure embeddings.
+    Its tables are looked up as ``bias:<table>`` (distinct from main tables
+    of the same name) and keep float32; its hidden layers use rate dropout
+    that is always on in training, unlike the towers' keep-prob dropout."""
+    parts = []
+    for spec in cfg.embeddings_bias:
+        ids = batch[spec.feature + IDS]
+        parts.append(engine.pooled(
+            "bias:" + spec.table, params["emb"][spec.table], ids,
+            feature_wts(batch, spec.feature, ids), batch[spec.feature + LEN],
+            feature=spec.feature))
+    y = torch.cat(parts, dim=-1)
+    p = params["mlp"]
+    for i in range(len(cfg.hidden_units_bias)):
+        y = torch.relu(dense_apply(p[f"layer{i}"]["dense"], y))
+        if train and i < len(cfg.dropout_rate_bias):
+            y = dropout_rate(gen, y, cfg.dropout_rate_bias[i])
+    return dense_apply(p["out"]["dense"], y)

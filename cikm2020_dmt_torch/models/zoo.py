@@ -1,12 +1,13 @@
-"""Model zoo, serving slice: the flagship ``mmoe_transformer_unbias``.
+"""Model zoo: the flagship ``mmoe_transformer_unbias``.
 
 Same composition as ``cikm2020_dmt_tpu/models/zoo.py``: ``MMoE`` is the
 trunk (pooled features -> stacked MMoE -> click and order towers),
 ``MMoETransformer`` adds the behavior-sequence interest states to its
-input, and ``MMoETransformerUnbias`` adds the bias net's params.  ``apply``
-is the predict path: it returns the relevance logits
-``(click_logit, order_logit)`` and never runs the bias net, as the
-reference's ``is_predict=True`` does.
+input, and ``MMoETransformerUnbias`` adds the bias net.  ``apply`` returns
+the relevance logits ``(click_logit, order_logit)`` and never runs the bias
+net, as the reference's ``is_predict=True`` does; with ``train=True`` the
+unbias model returns ``((click_logit, order_logit), bias_logit)`` with
+dropout on, its randomness drawn from ``gen``.
 
 Params are plain nested dicts with the reference's tree (logical
 ``[R, D]`` tables), so ``convert.py`` copies a JAX init leaf by leaf.
@@ -23,7 +24,8 @@ from ..data.schema import FeatureSchema
 from ..nn.embedding import collection_init
 from ..nn.layers import Params
 from ..parallel.embedding_shard import EmbeddingEngine
-from .components import (bias_net_init, combiner_dim, embedding_combiner,
+from .components import (bias_net_apply, bias_net_init, combiner_dim,
+                         embedding_combiner,
                          interest_dim, mmoe_apply, mmoe_init,
                          sequence_interest, sequences_init, tower_apply,
                          tower_init)
@@ -68,24 +70,27 @@ class MMoE:
                 "order_weight": torch.zeros((1,), device=gen.device)}
         return params
 
-    def apply(self, params: Params, batch: dict
-              ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Eval-mode relevance logits ``([B, 1], [B, 1])`` in float32."""
+    def apply(self, params: Params, batch: dict, *, train: bool = False,
+              gen: Optional[torch.Generator] = None):
+        """Relevance logits ``([B, 1], [B, 1])`` in float32."""
         cfg = self.cfg
         if self.use_interest:
             # interest first: the pooled combiner reuses its raw gathers
             interest, cache = sequence_interest(
                 params["trans"], params["emb"], batch, cfg,
-                engine=self.engine, dtype=self.compute_dtype)
+                engine=self.engine, dtype=self.compute_dtype, train=train,
+                gen=gen)
             x = embedding_combiner(params["emb"], batch, cfg,
                                    engine=self.engine, seq_cache=cache)
             x = torch.cat([x.to(self.compute_dtype), interest], dim=-1)
         else:
             x = embedding_combiner(params["emb"], batch, cfg,
                                    engine=self.engine).to(self.compute_dtype)
-        outs = mmoe_apply(params["mmoe"], x)
-        click = tower_apply(params["click"], outs[0])
-        order = tower_apply(params["order"], outs[1])
+        outs = mmoe_apply(params["mmoe"], x, cfg, train=train, gen=gen)
+        click = tower_apply(params["click"], outs[0], cfg, train=train,
+                            gen=gen)
+        order = tower_apply(params["order"], outs[1], cfg, train=train,
+                            gen=gen)
         return click.float(), order.float()
 
 
@@ -97,8 +102,8 @@ class MMoETransformer(MMoE):
 
 
 class MMoETransformerUnbias(MMoETransformer):
-    """Full DMT: MMoE transformer plus the bias net, whose params are kept
-    for the training path; serving drops the bias head."""
+    """Full DMT: MMoE transformer plus the bias net, which only training
+    runs; serving drops the bias head."""
 
     name = "mmoe_transformer_unbias"
 
@@ -106,6 +111,17 @@ class MMoETransformerUnbias(MMoETransformer):
         params = super().init(gen)
         params["bias_net"] = bias_net_init(gen, self.cfg, self.dtype)
         return params
+
+    def apply(self, params: Params, batch: dict, *, train: bool = False,
+              gen: Optional[torch.Generator] = None):
+        """Eval: the relevance logits.  ``train=True``:
+        ``((click_logit, order_logit), bias_logit)``, each [B, 1] float32."""
+        rel = super().apply(params, batch, train=train, gen=gen)
+        if not train:
+            return rel
+        bias = bias_net_apply(params["bias_net"], batch, self.cfg,
+                              train=True, gen=gen, engine=self.engine)
+        return rel, bias.float()
 
 
 def build_model(cfg: DMTConfig,

@@ -1,4 +1,4 @@
-"""Core functional layers: dense, MLP stacks (eval path) and layer norm.
+"""Core functional layers: dense, MLP stacks, dropout and layer norm.
 
 Params are plain nested dicts of tensors with the reference layout: a dense
 layer is ``{"w": [in, out], "b": [out]}``, an MLP is ``{"layer{i}":
@@ -77,7 +77,30 @@ def dense_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# MLP stack (hidden relu layers + optional linear output), eval path
+# Dropout
+# ---------------------------------------------------------------------------
+
+
+def dropout_keep(gen: torch.Generator, x: torch.Tensor,
+                 keep_prob: float) -> torch.Tensor:
+    """tf.nn.dropout semantics: keep each element with probability
+    ``keep_prob`` and scale the kept ones by ``1 / keep_prob``.  The draw
+    comes from ``gen``, which must live on ``x``'s device."""
+    if keep_prob >= 1.0:
+        return x
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+def dropout_rate(gen: torch.Generator, x: torch.Tensor,
+                 rate: float) -> torch.Tensor:
+    """tf.layers.dropout semantics: drop each element with probability
+    ``rate``."""
+    return dropout_keep(gen, x, 1.0 - rate)
+
+
+# ---------------------------------------------------------------------------
+# MLP stack (hidden relu layers + optional linear output)
 # ---------------------------------------------------------------------------
 
 
@@ -101,13 +124,19 @@ def mlp_init(gen: torch.Generator, in_dim: int, hidden: tuple[int, ...],
     return params
 
 
-def mlp_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Eval-mode MLP: relu hidden layers, linear output (dropout is off
-    outside training)."""
+def mlp_apply(params: Params, x: torch.Tensor, *,
+              keep_probs: tuple[float, ...] = (), train: bool = False,
+              is_dropout: bool = False,
+              gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Relu hidden layers, linear output.  In training with
+    ``is_dropout``, hidden layer i keeps with ``keep_probs[i]``."""
     y = x
     n_hidden = sum(1 for k in params if k.startswith("layer"))
     for i in range(n_hidden):
         y = torch.relu(dense_apply(params[f"layer{i}"]["dense"], y))
+        kp = keep_probs[i] if i < len(keep_probs) else 1.0
+        if is_dropout and train and kp < 1.0:
+            y = dropout_keep(gen, y, kp)
     if "out" in params:
         y = dense_apply(params["out"]["dense"], y)
     return y

@@ -10,9 +10,14 @@ Same contract as ``cikm2020_dmt_tpu/nn/transformer.py``:
 - inputs are scaled by sqrt(d_model), scores by 1/sqrt(d_head).
 
 ``encode_decode`` runs the production shape (one encoder and one decoder
-block) through ``ops.block.fused_encode_decode``: the CUDA kernel for
-tensors on the card, its plain PyTorch version for tensors on the CPU.
-Other block counts take the per-op path below.
+block) through ``ops.block.fused_encode_decode``: the CUDA kernels (forward
+and backward) for tensors on the card, their plain PyTorch versions for
+tensors on the CPU.  Other block counts take the per-op path below.
+
+In training, dropout (rate semantics) hits the encoder and decoder inputs
+and the attention probabilities: the fused path draws one kernel seed per
+call from the caller's generator, the per-op path draws its masks from the
+generator directly.
 """
 
 from __future__ import annotations
@@ -25,8 +30,8 @@ import torch
 
 from ..core.config import TransformerConfig
 from ..ops.block import NEG_INF, fused_encode_decode
-from .layers import (Params, dense_apply, dense_init, glorot_uniform,
-                     layer_norm_apply, layer_norm_init)
+from .layers import (Params, dense_apply, dense_init, dropout_rate,
+                     glorot_uniform, layer_norm_apply, layer_norm_init)
 
 
 def sincos_table(maxlen: int, dim: int) -> np.ndarray:
@@ -56,8 +61,11 @@ def mha_init(gen: torch.Generator, d_model: int, dtype=torch.float32) -> Params:
     }
 
 
-def attention_core(q, k, v, q_mask, k_mask, num_heads: int) -> torch.Tensor:
-    """Masked scaled-dot-product attention over projected q/k/v.
+def attention_core(q, k, v, q_mask, k_mask, num_heads: int, *,
+                   dropout: float = 0.0, train: bool = False,
+                   gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Masked scaled-dot-product attention over projected q/k/v, with
+    probability dropout in training.
 
     q: [B, Tq, D]; k, v: [B, Tk, D]; masks: [B, T] (1 = present).
     Returns [B, Tq, D]."""
@@ -73,17 +81,21 @@ def attention_core(q, k, v, q_mask, k_mask, num_heads: int) -> torch.Tensor:
                                     device=scores.device))
     probs = torch.softmax(scores, dim=-1)
     probs = probs * q_mask[:, None, :, None].to(probs.dtype)
+    if train and dropout > 0.0 and gen is not None:
+        probs = dropout_rate(gen, probs, dropout)
     out = torch.matmul(probs, vh)
     return out.transpose(1, 2).reshape(B, Tq, D)
 
 
 def mha_apply(params: Params, queries, keys, values, q_mask, k_mask, *,
-              num_heads: int) -> torch.Tensor:
-    """Projection -> attention -> residual -> LN (eval mode)."""
+              num_heads: int, dropout: float = 0.0, train: bool = False,
+              gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Projection -> attention -> residual -> LN."""
     q = dense_apply(params["q"], queries)
     k = dense_apply(params["k"], keys)
     v = dense_apply(params["v"], values)
-    out = attention_core(q, k, v, q_mask, k_mask, num_heads)
+    out = attention_core(q, k, v, q_mask, k_mask, num_heads,
+                         dropout=dropout, train=train, gen=gen)
     return layer_norm_apply(params["ln"], out + queries)
 
 
@@ -168,9 +180,13 @@ def encode_decode(params: Params, tc: TransformerConfig, *,
                   seq_emb: torch.Tensor,       # [B, Tk, d_model]
                   seq_mask: torch.Tensor,      # [B, Tk] 1 = present
                   tar_emb: torch.Tensor,       # [B, d_model]
-                  ts_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  ts_emb: Optional[torch.Tensor] = None,
+                  train: bool = False,
+                  gen: Optional[torch.Generator] = None) -> torch.Tensor:
     """Encode the behavior sequence, decode the target against it; returns
-    the user-interest state [B, d_model].  Eval mode (no dropout)."""
+    the user-interest state [B, d_model].  ``train`` turns dropout on;
+    its randomness comes from ``gen`` (on the inputs' device)."""
+    drop = train and tc.dropout_rate > 0.0 and gen is not None
     scale = math.sqrt(tc.d_model)
     enc = _position_encode(params, tc, seq_emb * scale, ts_emb)
     dec = tar_emb * scale
@@ -179,17 +195,28 @@ def encode_decode(params: Params, tc: TransformerConfig, *,
                                 dtype=dec.dtype, device=dec.device)
         dec = dec + table[0][None]
     if len(params["enc"]) == 1 and len(params["dec"]) == 1:
+        seed = (torch.randint(0, 2 ** 31 - 1, (1,), generator=gen,
+                              device=gen.device, dtype=torch.int32)
+                if drop else None)
         return fused_encode_decode(params["enc"][0], params["dec"][0],
                                    enc_in=enc, dec_in=dec, seq_mask=seq_mask,
-                                   num_heads=tc.num_heads)
+                                   num_heads=tc.num_heads, train=drop,
+                                   rate=tc.dropout_rate, seed=seed)
+    rate = tc.dropout_rate if drop else 0.0
+    if drop:
+        enc = dropout_rate(gen, enc, rate)
     for block in params["enc"]:
         enc = mha_apply(block["mha"], enc, enc, enc, seq_mask, seq_mask,
-                        num_heads=tc.num_heads)
+                        num_heads=tc.num_heads, dropout=rate, train=drop,
+                        gen=gen)
         enc = ff_apply(block["ff"], enc)
     dec = dec[:, None, :]
+    if drop:
+        dec = dropout_rate(gen, dec, rate)
     q_mask = torch.ones((dec.shape[0], 1), dtype=dec.dtype, device=dec.device)
     for block in params["dec"]:
         dec = mha_apply(block["mha"], dec, enc, enc, q_mask, seq_mask,
-                        num_heads=tc.num_heads)
+                        num_heads=tc.num_heads, dropout=rate, train=drop,
+                        gen=gen)
         dec = ff_apply(block["ff"], dec)
     return dec[:, 0, :]

@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface.  It is compiled with
-``nvcc`` for ``sm_90a`` into a shared library at first use, into
-``cikm2020_dmt_torch/_build/`` (listed in ``.gitignore``), under a name keyed
-by a hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  The library is bound with ``ctypes``.
+Each ``csrc/<name>.cu`` exposes a plain C interface: a launcher ``<name>``
+that returns a CUDA error code, and ``<name>_error_string``.  It is
+compiled with ``nvcc`` for ``sm_90a`` into a shared library at first use,
+into ``cikm2020_dmt_torch/_build/`` (listed in ``.gitignore``), under a name
+keyed by a hash of the source, the shared headers and the flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is.  The
+library is bound with ``ctypes``.
 
 A missing ``nvcc`` or a failed build raises: there is no fallback.
 """
@@ -40,7 +42,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    # the shared headers are part of every kernel's key
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC_DIR / f"{name}.cu"] + sorted(CSRC_DIR.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 
@@ -88,3 +92,26 @@ def load(name: str) -> ctypes.CDLL:
     """The kernel library ``name``, built first if needed."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+@functools.cache
+def bind(name: str, argtypes: tuple):
+    """The launcher ``name`` of kernel library ``name`` with its ctypes
+    argument types (``c_void_p`` for pointers and the stream)."""
+    lib = load(name)
+    fn = getattr(lib, name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    err = getattr(lib, name + "_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return fn
+
+
+def check(name: str, err: int, what: str) -> None:
+    """Raises if a launch returned a CUDA error: a refused launch never
+    runs, and a later synchronise would not report it."""
+    if err != 0:
+        msg = getattr(load(name), name + "_error_string")(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg}) "
+                           f"at {what}")

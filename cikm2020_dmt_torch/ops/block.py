@@ -1,53 +1,74 @@
-"""Fused Deep-Interest-Transformer block forward: one CUDA kernel for the
-whole encoder + single-query decoder of one behavior sequence, eval mode.
+"""Fused Deep-Interest-Transformer block: one CUDA kernel for the forward of
+the whole encoder + single-query decoder of one behavior sequence, and one
+for its backward.
 
 Per example (``enc_in`` [T, D] already scaled and position-encoded,
 ``dec_in`` [D] the scaled target):
 
-    enc: QKV proj -> masked MHA (key mask, query rows zeroed) -> +res -> LN
-         -> FF(relu) -> +res -> LN                                  = H2 [T, D]
-    dec: QKV proj (query from dec_in, keys/values from H2) -> masked MHA
-         -> +res -> LN -> FF(relu) -> +res -> LN                    = out [D]
+    enc: input dropout -> QKV proj -> masked MHA (key mask, query rows
+         zeroed, prob dropout) -> +res -> LN -> FF(relu) -> +res -> LN = H2
+    dec: input dropout -> QKV proj (query from dec_in, keys/values from H2)
+         -> masked MHA (prob dropout) -> +res -> LN -> FF(relu) -> +res
+         -> LN                                                       = out
 
-``fused_encode_decode`` launches the kernel (``csrc/fused_block_fwd.cu``)
-for tensors on the card and takes the plain PyTorch version
-``fused_encode_decode_ref`` for tensors on the CPU; it never falls back
-from the one to the other.
+``fused_encode_decode`` is differentiable (``torch.autograd.Function``).
+For tensors on the card its forward launches ``csrc/fused_block_fwd.cu``
+and its backward ``csrc/fused_block_bwd.cu``; for tensors on the CPU they
+take the plain PyTorch versions ``fused_encode_decode_ref`` and
+``fused_block_bwd_ref``.  Neither falls back to the other.
 
-The kernel replaces the TPU kernel ``cikm2020_dmt_tpu/ops/block.py``
-``_make_fwd_kernel`` (launched by ``_fwd_call``, entry
-``fused_encode_decode``) with ``train=False``.  Unlike that wrapper, the
-sequence is not padded to a multiple of 8: a sequence with no present key
-gets a uniform softmax over its T real positions, as in the reference's
-per-op path (the padded TPU kernel spreads it over the padded length).
+The kernels replace the TPU kernels of ``cikm2020_dmt_tpu/ops/block.py``:
+``_make_fwd_kernel`` (via ``_fwd_call``) and ``_make_bwd_kernel`` (via
+``_bwd_call``).  Unlike that wrapper, the sequence is not padded to a
+multiple of 8: a sequence with no present key gets a uniform softmax over
+its T real positions, as in the reference's per-op path.
+
+Dropout (training, ``rate`` > 0) drops the input rows of ``enc_in`` and
+``dec_in`` and, per head, the attention probabilities after the query
+mask, keeping with probability 1 - rate and scaling kept values by
+1 / (1 - rate).  Each mask element comes from a counter-based hash of
+(seed, site, example, row, column) written once here (``dropout_mask``)
+and once in the kernels, so the kernels, the plain versions and the
+backward replay draw bit-identical masks.  The hash needs only the low 32
+bits of each product, which int64 tensor arithmetic reproduces exactly.
+It does not reproduce the TPU's hardware random bits.
 
 Compute types follow the TPU kernel: with bfloat16 inputs every operand of
 every product is rounded to bfloat16 (weights included); sums, softmax and
-layer norm stay float32 and the output is rounded to the input type.
-
-Bound on the H100: ~9.2 MFLOP per example at T=50 against ~17 KB of input,
-so float32 arithmetic bounds it (see ``block_flops`` / ``block_bytes``).
+layer norm stay float32 and outputs are rounded to the input type.  Weight
+gradients are float32, summed over the batch.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
 
-from ..nn.layers import layer_norm_apply
 from . import _build
 
 KERNEL = "fused_block_fwd"
+BWD_KERNEL = "fused_block_bwd"
 NEG_INF = -(2.0 ** 32) + 1  # score of a masked key (the reference's pad)
+LN_EPS = 1e-8
+
+# dropout sites (the reference's ids); probabilities of head h use
+# site * 16 + h
+SITE_ENC_IN = 0
+SITE_ENC_PROBS = 1
+SITE_DEC_IN = 2
+SITE_DEC_PROBS = 3
+
+_MASK32 = 0xFFFFFFFF
+_GOLDEN = 0x9E3779B9
 
 
 def pack_weights(p) -> tuple[torch.Tensor, ...]:
     """Block params -> the kernel layout, float32 and contiguous:
     wqkv [D, 3D], vecs [8, D] (bq bk bv ln1g ln1b ln2g ln2b b2),
-    w1 [D, F], b1 [F], w2 [F, D]."""
+    w1 [D, F], b1 [F], w2 [F, D].  Differentiable: the gradients of the
+    packed tensors flow back to the param tree through the cat/stack."""
     mha, ff = p["mha"], p["ff"]
     wqkv = torch.cat([mha["q"]["w"], mha["k"]["w"], mha["v"]["w"]], dim=1)
     vecs = torch.stack([
@@ -59,132 +80,453 @@ def pack_weights(p) -> tuple[torch.Tensor, ...]:
 
 
 # ---------------------------------------------------------------------------
-# Plain PyTorch version
+# Dropout masks: a counter-based hash, the same bits as the kernels
 # ---------------------------------------------------------------------------
 
 
-def _sub_block(x, kv, k_mask, q_mask, w, num_heads, rnd):
-    """One attention + FF sub-block.  x [B, Tq, D] queries and residual,
-    kv [B, Tk, D] keys/values source; masks [B, Tk] / [B, Tq] or None."""
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for x in [0, 2**32), without int64 overflow."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK32
+
+
+def lowbias32(x: torch.Tensor) -> torch.Tensor:
+    """The lowbias32 integer finalizer on int64 tensors holding uint32."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def keep_threshold(rate: float) -> int:
+    """An element is kept when the top 24 bits of its hash are below this."""
+    return int(round((1.0 - rate) * (1 << 24)))
+
+
+def dropout_mask(seed: int, site: int, B: int, rows: int, cols: int,
+                 rate: float, device) -> torch.Tensor:
+    """Scaled keep-mask [B, rows, cols] (float32, 0 or 1 / (1 - rate)) of
+    one site: element (b, r, c) hashes (seed, site, b, r, c) as
+
+        key  = lowbias32(seed + site * 0x9E3779B9)
+        bits = lowbias32(lowbias32(key ^ b) ^ (r << 16 | c))
+
+    and is kept when ``bits >> 8 < keep_threshold(rate)``."""
+    key = lowbias32(torch.tensor((seed + site * _GOLDEN) & _MASK32,
+                                 dtype=torch.int64, device=device))
+    ex = lowbias32(key ^ torch.arange(B, device=device))
+    rc = ((torch.arange(rows, device=device)[:, None] << 16)
+          | torch.arange(cols, device=device)[None, :])
+    bits = lowbias32(ex[:, None, None] ^ rc[None])
+    keep = (bits >> 8) < keep_threshold(rate)
+    scale = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32,
+                         device=device)
+    return torch.where(keep, scale, torch.zeros((), device=device))
+
+
+def _masks(B, T, D, H, train, rate, seed, device):
+    """(enc input [B,T,D], dec input [B,D], enc probs [B,H,T,T], dec probs
+    [B,H,1,T]) scaled keep-masks, or four Nones outside training."""
+    if not (train and rate > 0.0):
+        return None, None, None, None
+    if seed is None:
+        raise ValueError("fused block: training dropout needs a seed")
+    s = int(seed.reshape(-1)[0])
+    dm_e = dropout_mask(s, SITE_ENC_IN, B, T, D, rate, device)
+    dm_d = dropout_mask(s, SITE_DEC_IN, B, 1, D, rate, device)[:, 0]
+    dmp_e = torch.stack([dropout_mask(s, SITE_ENC_PROBS * 16 + h, B, T, T,
+                                      rate, device) for h in range(H)], 1)
+    dmp_d = torch.stack([dropout_mask(s, SITE_DEC_PROBS * 16 + h, B, 1, T,
+                                      rate, device) for h in range(H)], 1)
+    return dm_e, dm_d, dmp_e, dmp_d
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions: forward replay and explicit backward, mirroring
+# the TPU kernels' _ffln/_attend3 and _ffln_bwd/_attend3_bwd/_ln_bwd
+# ---------------------------------------------------------------------------
+
+
+def _rounding(dtype):
+    if dtype == torch.bfloat16:
+        return lambda t: t.to(torch.bfloat16).float()
+    return lambda t: t
+
+
+def _ln(x, gamma, beta):
+    mean = x.mean(-1, keepdim=True)
+    xc = x - mean
+    inv = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + LN_EPS)
+    xhat = xc * inv
+    return gamma * xhat + beta, xhat, inv
+
+
+def _rows_sum(t):
+    return t.reshape(-1, t.shape[-1]).sum(0)
+
+
+def _ln_bwd(g, xhat, inv, gamma):
+    """dL/dx of y = gamma * xhat + beta, and (dgamma, dbeta)."""
+    gg = g * gamma
+    dx = (gg - gg.mean(-1, keepdim=True)
+          - xhat * (gg * xhat).mean(-1, keepdim=True)) * inv
+    return dx, _rows_sum(g * xhat), _rows_sum(g)
+
+
+def _heads(x, H):
+    B, T, D = x.shape
+    return x.reshape(B, T, H, D // H).transpose(1, 2)
+
+
+def _merge(x):
+    B, H, T, dh = x.shape
+    return x.transpose(1, 2).reshape(B, T, H * dh)
+
+
+def _probs(qh, kh, km, rnd):
+    scale = 1.0 / math.sqrt(qh.shape[-1])
+    s = (rnd(qh) @ rnd(kh).transpose(-1, -2)) * scale
+    s = torch.where(km[:, None, None, :] > 0, s,
+                    torch.full((), NEG_INF, device=s.device))
+    return torch.softmax(s, dim=-1)
+
+
+def _attend(q, k, v, km, qm, dmp, H, rnd):
+    p = _probs(_heads(q, H), _heads(k, H), km, rnd)
+    if qm is not None:
+        p = p * qm[:, None, :, None]
+    if dmp is not None:
+        p = p * dmp
+    return _merge(rnd(p) @ rnd(_heads(v, H)))
+
+
+def _attend_bwd(gc, q, k, v, km, qm, dmp, H, rnd):
+    qh, kh, vh, gh = (_heads(t, H) for t in (q, k, v, gc))
+    scale = 1.0 / math.sqrt(qh.shape[-1])
+    p0 = _probs(qh, kh, km, rnd)
+    pd = p0 if qm is None else p0 * qm[:, None, :, None]
+    if dmp is not None:
+        pd = pd * dmp
+    dv = rnd(pd).transpose(-1, -2) @ rnd(gh)
+    dp = rnd(gh) @ rnd(vh).transpose(-1, -2)
+    if dmp is not None:
+        dp = dp * dmp
+    if qm is not None:
+        dp = dp * qm[:, None, :, None]
+    ds = p0 * (dp - (dp * p0).sum(-1, keepdim=True))
+    # a masked key's score is a constant: no gradient reaches it (this
+    # matters only on len-0 rows, where the softmax is uniform; the TPU
+    # kernel lets it through, the reference's jnp path does not)
+    ds = torch.where(km[:, None, None, :] > 0, ds,
+                     torch.zeros((), device=ds.device))
+    dq = (rnd(ds) @ rnd(kh)) * scale
+    dk = (rnd(ds).transpose(-1, -2) @ rnd(qh)) * scale
+    return _merge(dq), _merge(dk), _merge(dv)
+
+
+def _sub_fwd(x, kv, km, qm, dmp, w, H, rnd):
+    """Attention + FF sub-block; x [B, Tq, D] queries and residual, kv
+    [B, Tk, D] keys/values.  Returns (out, residuals)."""
     wqkv, vecs, w1, b1, w2 = w
-    B, Tq, D = x.shape
-    Tk = kv.shape[1]
-    dh = D // num_heads
+    D = x.shape[-1]
     q = rnd(x) @ rnd(wqkv[:, :D]) + vecs[0]
     k = rnd(kv) @ rnd(wqkv[:, D:2 * D]) + vecs[1]
     v = rnd(kv) @ rnd(wqkv[:, 2 * D:]) + vecs[2]
-    qh = rnd(q).reshape(B, Tq, num_heads, dh).transpose(1, 2)
-    kh = rnd(k).reshape(B, Tk, num_heads, dh).transpose(1, 2)
-    vh = rnd(v).reshape(B, Tk, num_heads, dh).transpose(1, 2)
-    s = (qh @ kh.transpose(-1, -2)) * (1.0 / math.sqrt(dh))
-    s = torch.where(k_mask[:, None, None, :] > 0, s,
-                    torch.full((), NEG_INF, device=s.device))
-    p = torch.softmax(s, dim=-1)
-    if q_mask is not None:
-        p = p * q_mask[:, None, :, None]
-    ctx = (rnd(p) @ vh).transpose(1, 2).reshape(B, Tq, D)
-    h1 = layer_norm_apply({"gamma": vecs[3], "beta": vecs[4]}, ctx + x)
+    ctx = _attend(q, k, v, km, qm, dmp, H, rnd)
+    h1, xhat1, inv1 = _ln(ctx + x, vecs[3], vecs[4])
     f = torch.relu(rnd(h1) @ rnd(w1) + b1)
     f2 = rnd(f) @ rnd(w2) + vecs[7]
-    return layer_norm_apply({"gamma": vecs[5], "beta": vecs[6]}, f2 + h1)
+    out, xhat2, inv2 = _ln(f2 + h1, vecs[5], vecs[6])
+    return out, (q, k, v, h1, xhat1, inv1, f, xhat2, inv2)
 
 
-def fused_encode_decode_ref(enc_params, dec_params, *, enc_in, dec_in,
-                            seq_mask, num_heads: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: the same arithmetic, with the
-    same bfloat16 rounding points for bfloat16 inputs."""
-    if enc_in.dtype == torch.bfloat16:
-        def rnd(t):
-            return t.to(torch.bfloat16).float()
-    else:
-        def rnd(t):
-            return t
+def _tdot(a, b, rnd):
+    """sum over every leading row of a^T b: [.., M] x [.., N] -> [M, N]."""
+    return (rnd(a).reshape(-1, a.shape[-1]).T
+            @ rnd(b).reshape(-1, b.shape[-1]))
+
+
+def _sub_bwd(g, x, kv, res, km, qm, dmp, w, H, rnd):
+    """Backward of ``_sub_fwd``: (dx, dkv, packed weight grads)."""
+    wqkv, vecs, w1, _, w2 = w
+    q, k, v, h1, xhat1, inv1, f, xhat2, inv2 = res
+    D = x.shape[-1]
+    dln2, dg2, db2v = _ln_bwd(g, xhat2, inv2, vecs[5])
+    df = rnd(dln2) @ rnd(w2).T
+    dw2 = _tdot(f, dln2, rnd)
+    dfpre = df * (f > 0)
+    dh1 = dln2 + rnd(dfpre) @ rnd(w1).T
+    dw1 = _tdot(h1, dfpre, rnd)
+    da1, dg1, db1v = _ln_bwd(dh1, xhat1, inv1, vecs[3])
+    dq, dk, dv = _attend_bwd(da1, q, k, v, km, qm, dmp, H, rnd)
+    dwqkv = torch.cat([_tdot(x, dq, rnd), _tdot(kv, dk, rnd),
+                       _tdot(kv, dv, rnd)], dim=1)
+    dvecs = torch.stack([_rows_sum(dq), _rows_sum(dk), _rows_sum(dv),
+                         dg1, db1v, dg2, db2v, _rows_sum(dln2)])
+    dx = da1 + rnd(dq) @ rnd(wqkv[:, :D]).T
+    dkv = (rnd(dk) @ rnd(wqkv[:, D:2 * D]).T
+           + rnd(dv) @ rnd(wqkv[:, 2 * D:]).T)
+    return dx, dkv, (dwqkv, dvecs, dw1, _rows_sum(dfpre), dw2)
+
+
+def _wide(t):
+    """float32, or float64 for float64 inputs (with float64 weights the
+    plain versions then run wholly in float64, a reference for rounding)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
+def _replay(ew, dw, enc_in, dec_in, seq_mask, H, masks):
+    rnd = _rounding(enc_in.dtype)
+    dm_e, dm_d, dmp_e, dmp_d = masks
     km = seq_mask.float()
-    e0 = enc_in.float()
-    h2 = _sub_block(e0, e0, km, km, pack_weights(enc_params), num_heads, rnd)
-    out = _sub_block(dec_in.float()[:, None, :], h2, km, None,
-                     pack_weights(dec_params), num_heads, rnd)
+    e0 = _wide(enc_in)
+    d0 = _wide(dec_in)
+    if dm_e is not None:
+        e0, d0 = e0 * dm_e, d0 * dm_d
+    d0 = d0[:, None, :]
+    h2, eres = _sub_fwd(e0, e0, km, km, dmp_e, ew, H, rnd)
+    out, dres = _sub_fwd(d0, h2, km, None, dmp_d, dw, H, rnd)
+    return e0, d0, h2, eres, out, dres, km, rnd
+
+
+def _fwd_ref(ew, dw, enc_in, dec_in, seq_mask, H, train, rate, seed):
+    B, T, D = enc_in.shape
+    masks = _masks(B, T, D, H, train, rate, seed, enc_in.device)
+    out = _replay(ew, dw, enc_in, dec_in, seq_mask, H, masks)[4]
     return out[:, 0, :].to(enc_in.dtype)
 
 
+def fused_encode_decode_ref(enc_params, dec_params, *, enc_in, dec_in,
+                            seq_mask, num_heads: int, train: bool = False,
+                            rate: float = 0.0, seed=None) -> torch.Tensor:
+    """Plain PyTorch version of the forward kernel: the same arithmetic,
+    the same dropout masks, the same bfloat16 rounding points."""
+    return _fwd_ref(pack_weights(enc_params), pack_weights(dec_params),
+                    enc_in, dec_in, seq_mask, num_heads, train, rate, seed)
+
+
+def fused_block_bwd_ref(ew, dw, *, enc_in, dec_in, seq_mask, g,
+                        num_heads: int, train: bool = False,
+                        rate: float = 0.0, seed=None):
+    """Plain PyTorch version of the backward kernel: replays the forward
+    and chains the gradients as the TPU kernel ``_make_bwd_kernel`` does.
+
+    ``ew``/``dw`` are ``pack_weights`` tuples, ``g`` [B, D] the output's
+    cotangent.  Returns (d_enc [B, T, D], d_dec [B, D], 10 float32 weight
+    grads in the ``pack_weights`` layout, encoder's then decoder's,
+    summed over the batch)."""
+    B, T, D = enc_in.shape
+    masks = _masks(B, T, D, num_heads, train, rate, seed, enc_in.device)
+    e0, d0, h2, eres, _, dres, km, rnd = _replay(
+        ew, dw, enc_in, dec_in, seq_mask, num_heads, masks)
+    dd0, dh2, gdw = _sub_bwd(_wide(g)[:, None, :], d0, h2, dres, km, None,
+                             masks[3], dw, num_heads, rnd)
+    dx, dkv, gew = _sub_bwd(dh2, e0, e0, eres, km, km, masks[2], ew,
+                            num_heads, rnd)
+    de0, dd0 = dx + dkv, dd0[:, 0, :]
+    if masks[0] is not None:
+        de0, dd0 = de0 * masks[0], dd0 * masks[1]
+    return (de0.to(enc_in.dtype), dd0.to(dec_in.dtype),
+            tuple(gew) + tuple(gdw))
+
+
 # ---------------------------------------------------------------------------
-# CUDA kernel
+# CUDA kernels
 # ---------------------------------------------------------------------------
 
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(KERNEL)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.fused_block_fwd.argtypes = (
-        [ptr] * 14 + [i32] * 5 + [ctypes.c_float, i32, ptr])
-    lib.fused_block_fwd.restype = i32
-    lib.fused_block_fwd_error_string.argtypes = [i32]
-    lib.fused_block_fwd_error_string.restype = ctypes.c_char_p
-    return lib
+_PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def fused_encode_decode(enc_params, dec_params, *, enc_in, dec_in, seq_mask,
-                        num_heads: int) -> torch.Tensor:
-    """enc_in [B, T, D] (scaled, position-encoded), dec_in [B, D] (scaled
-    target), seq_mask [B, T] (1 = present) -> [B, D] in enc_in's dtype.
+# enc dec mask, 10 weights, out | B T D F H | scale is_bf16 | seed train
+# keep_thr drop_scale | stream
+_FWD_ARGS = tuple([_PTR] * 14 + [_I32] * 5
+                  + [_F32, _I32, _PTR, _I32, _I32, _F32, _PTR])
+# enc dec mask, 10 weights, 6 transposed weights, g, d_enc d_dec, partial,
+# gw | B T D F H | scale is_bf16 | seed train keep_thr drop_scale | blocks |
+# stream
+_BWD_ARGS = tuple([_PTR] * 24 + [_I32] * 5
+                  + [_F32, _I32, _PTR, _I32, _I32, _F32, _I32, _PTR])
 
-    CPU tensors take ``fused_encode_decode_ref``; CUDA tensors launch the
-    kernel, and anything the kernel does not take raises."""
-    if enc_in.device.type == "cpu":
-        return fused_encode_decode_ref(
-            enc_params, dec_params, enc_in=enc_in, dec_in=dec_in,
-            seq_mask=seq_mask, num_heads=num_heads)
-    if enc_in.device.type != "cuda":
-        raise ValueError(f"fused_encode_decode: unsupported device "
-                         f"{enc_in.device}")
+
+def _check(name, enc_in, dec_in, seq_mask, num_heads, ew, dw, seed, train,
+           rate):
+    """Raises on anything the kernels do not take; returns (B, T, D, F)."""
     if enc_in.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"fused_encode_decode: enc_in dtype {enc_in.dtype} "
+        raise TypeError(f"{name}: enc_in dtype {enc_in.dtype} "
                         "(float32 or bfloat16 only)")
     if enc_in.dim() != 3:
-        raise ValueError(f"fused_encode_decode: enc_in must be [B, T, D], "
-                         f"got {tuple(enc_in.shape)}")
+        raise ValueError(f"{name}: enc_in must be [B, T, D], got "
+                         f"{tuple(enc_in.shape)}")
     B, T, D = enc_in.shape
     if dec_in.shape != (B, D) or dec_in.dtype != enc_in.dtype:
-        raise ValueError(f"fused_encode_decode: dec_in {tuple(dec_in.shape)} "
+        raise ValueError(f"{name}: dec_in {tuple(dec_in.shape)} "
                          f"{dec_in.dtype}, want ({B}, {D}) {enc_in.dtype}")
     if seq_mask.shape != (B, T):
-        raise ValueError(f"fused_encode_decode: seq_mask "
-                         f"{tuple(seq_mask.shape)}, want ({B}, {T})")
-    if T < 1 or D % num_heads:
-        raise ValueError(f"fused_encode_decode: T={T}, D={D}, "
-                         f"num_heads={num_heads}")
-    dev = enc_in.device
-    ew, dw = pack_weights(enc_params), pack_weights(dec_params)
+        raise ValueError(f"{name}: seq_mask {tuple(seq_mask.shape)}, want "
+                         f"({B}, {T})")
+    if T < 1 or T > 65535 or D % num_heads or D > 65535:
+        raise ValueError(f"{name}: T={T}, D={D}, num_heads={num_heads}")
     F = ew[2].shape[1]
-    for t in (dec_in, seq_mask) + ew + dw:
-        if t.device != dev:
-            raise ValueError(f"fused_encode_decode: operand on {t.device}, "
-                             f"enc_in on {dev}")
-    if ew[0].shape != (D, 3 * D) or dw[2].shape != (D, F):
-        raise ValueError("fused_encode_decode: block weights do not match "
-                         f"D={D}")
+    if ew[0].shape != (D, 3 * D) or dw[0].shape != (D, 3 * D) \
+            or dw[2].shape != (D, F):
+        raise ValueError(f"{name}: block weights do not match D={D}")
+    drop = train and rate > 0.0
+    if drop and not (0.0 < rate < 1.0):
+        raise ValueError(f"{name}: dropout rate {rate}")
+    if drop and (seed is None or seed.dtype != torch.int32
+                 or seed.numel() != 1):
+        raise ValueError(f"{name}: training dropout needs an int32 seed "
+                         "tensor of one element")
+    for t in (dec_in, seq_mask) + tuple(ew) + tuple(dw) + (
+            (seed,) if drop else ()):
+        if t.device != enc_in.device:
+            raise ValueError(f"{name}: operand on {t.device}, enc_in on "
+                             f"{enc_in.device}")
+    return B, T, D, F
+
+
+def _drop_args(train, rate, seed):
+    if train and rate > 0.0:
+        return (seed.data_ptr(), 1, keep_threshold(rate),
+                float(torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32)))
+    return (None, 0, 1 << 24, 1.0)
+
+
+def _fwd_kernel(ew, dw, enc_in, dec_in, seq_mask, num_heads, train, rate,
+                seed):
+    B, T, D, F = _check("fused_block_fwd", enc_in, dec_in, seq_mask,
+                        num_heads, ew, dw, seed, train, rate)
+    dev = enc_in.device
     enc = enc_in.contiguous()
     dec = dec_in.contiguous()
     mask = seq_mask.to(torch.float32).contiguous()
     out = torch.empty((B, D), dtype=enc_in.dtype, device=dev)
     if B == 0:
         return out
-    lib = _lib()
+    launch = _build.bind(KERNEL, _FWD_ARGS)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_block_fwd(
+        err = launch(
             enc.data_ptr(), dec.data_ptr(), mask.data_ptr(),
             *(t.data_ptr() for t in ew), *(t.data_ptr() for t in dw),
             out.data_ptr(), B, T, D, F, num_heads,
             1.0 / math.sqrt(D // num_heads),
-            int(enc_in.dtype == torch.bfloat16), stream)
-    if err != 0:
-        msg = lib.fused_block_fwd_error_string(err).decode()
-        raise RuntimeError(f"fused_block_fwd launch failed: CUDA error {err} "
-                           f"({msg}) at B={B} T={T} D={D} F={F}")
+            int(enc_in.dtype == torch.bfloat16),
+            *_drop_args(train, rate, seed), stream)
+    _build.check(KERNEL, err, f"B={B} T={T} D={D} F={F}")
     fused_encode_decode.launches += 1
     return out
+
+
+def fused_block_bwd(ew, dw, *, enc_in, dec_in, seq_mask, g, num_heads: int,
+                    train: bool = False, rate: float = 0.0, seed=None):
+    """The block's backward: ``fused_block_bwd_ref``'s contract.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel (a
+    persistent grid of one block per SM, each writing its own partial
+    weight grads, then a reduction over the blocks in a fixed order, so
+    runs are deterministic); anything else raises."""
+    if enc_in.device.type == "cpu":
+        return fused_block_bwd_ref(ew, dw, enc_in=enc_in, dec_in=dec_in,
+                                   seq_mask=seq_mask, g=g,
+                                   num_heads=num_heads, train=train,
+                                   rate=rate, seed=seed)
+    if enc_in.device.type != "cuda":
+        raise ValueError(f"fused_block_bwd: unsupported device "
+                         f"{enc_in.device}")
+    B, T, D, F = _check("fused_block_bwd", enc_in, dec_in, seq_mask,
+                        num_heads, ew, dw, seed, train, rate)
+    if g.shape != (B, D) or g.device != enc_in.device:
+        raise ValueError(f"fused_block_bwd: g {tuple(g.shape)} on "
+                         f"{g.device}, want ({B}, {D})")
+    dev = enc_in.device
+    enc = enc_in.contiguous()
+    dec = dec_in.contiguous()
+    gg = g.to(enc_in.dtype).contiguous()
+    mask = seq_mask.to(torch.float32).contiguous()
+    d_enc = torch.empty_like(enc)
+    d_dec = torch.empty_like(dec)
+    sizes = [D * 3 * D, 8 * D, D * F, F, F * D]
+    nw = 2 * sum(sizes)
+    gw = torch.empty((nw,), dtype=torch.float32, device=dev)
+    blocks = min(B, torch.cuda.get_device_properties(dev)
+                 .multi_processor_count)
+    partial = torch.empty((max(blocks, 1), nw), dtype=torch.float32,
+                          device=dev)
+    # wqkv, w1 and w2 transposed: the kernel's products with W^T read them
+    # row by row
+    wt = [w[i].t().contiguous() for w in (ew, dw) for i in (0, 2, 4)]
+    if B == 0:
+        gw.zero_()
+    else:
+        launch = _build.bind(BWD_KERNEL, _BWD_ARGS)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = launch(
+                enc.data_ptr(), dec.data_ptr(), mask.data_ptr(),
+                *(t.data_ptr() for t in ew), *(t.data_ptr() for t in dw),
+                *(t.data_ptr() for t in wt),
+                gg.data_ptr(), d_enc.data_ptr(), d_dec.data_ptr(),
+                partial.data_ptr(), gw.data_ptr(), B, T, D, F, num_heads,
+                1.0 / math.sqrt(D // num_heads),
+                int(enc_in.dtype == torch.bfloat16),
+                *_drop_args(train, rate, seed), blocks, stream)
+        _build.check(BWD_KERNEL, err, f"B={B} T={T} D={D} F={F}")
+        fused_block_bwd.launches += 1
+    shapes = [(D, 3 * D), (8, D), (D, F), (F,), (F, D)] * 2
+    parts = torch.split(gw, sizes * 2)
+    return d_enc, d_dec, tuple(p.view(s) for p, s in zip(parts, shapes))
+
+
+fused_block_bwd.launches = 0
+
+
+class _FusedBlock(torch.autograd.Function):
+    """The fused block with its hand-written backward; the weights enter
+    packed (``pack_weights``)."""
+
+    @staticmethod
+    def forward(ctx, enc_in, dec_in, seq_mask, seed, num_heads, train, rate,
+                *w):
+        ew, dw = w[:5], w[5:]
+        if enc_in.device.type == "cpu":
+            out = _fwd_ref(ew, dw, enc_in, dec_in, seq_mask, num_heads,
+                           train, rate, seed)
+        else:
+            out = _fwd_kernel(ew, dw, enc_in, dec_in, seq_mask, num_heads,
+                              train, rate, seed)
+        ctx.save_for_backward(enc_in, dec_in, seq_mask, seed, *w)
+        ctx.opts = (num_heads, train, rate)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        enc_in, dec_in, seq_mask, seed, *w = ctx.saved_tensors
+        num_heads, train, rate = ctx.opts
+        d_enc, d_dec, gw = fused_block_bwd(
+            tuple(w[:5]), tuple(w[5:]), enc_in=enc_in, dec_in=dec_in,
+            seq_mask=seq_mask, g=g, num_heads=num_heads, train=train,
+            rate=rate, seed=seed)
+        return (d_enc, d_dec, None, None, None, None, None) + tuple(gw)
+
+
+def fused_encode_decode(enc_params, dec_params, *, enc_in, dec_in, seq_mask,
+                        num_heads: int, train: bool = False,
+                        rate: float = 0.0, seed=None) -> torch.Tensor:
+    """enc_in [B, T, D] (scaled, position-encoded), dec_in [B, D] (scaled
+    target), seq_mask [B, T] (1 = present) -> [B, D] in enc_in's dtype.
+    ``train`` with ``rate`` > 0 drops out as the module docstring says,
+    from ``seed`` (an int32 tensor of one element on the inputs' device).
+
+    CPU tensors take the plain versions; CUDA tensors launch the kernels,
+    and anything the kernels do not take raises."""
+    if enc_in.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_encode_decode: unsupported device "
+                         f"{enc_in.device}")
+    ew, dw = pack_weights(enc_params), pack_weights(dec_params)
+    return _FusedBlock.apply(enc_in, dec_in, seq_mask, seed, num_heads,
+                             bool(train), float(rate), *ew, *dw)
 
 
 fused_encode_decode.launches = 0
@@ -196,8 +538,8 @@ fused_encode_decode.launches = 0
 
 
 def block_flops(B: int, T: int, D: int, F: int) -> int:
-    """Multiply-adds x 2 of one launch: encoder QKV, scores, P.V and FF;
-    decoder Q, K/V over T rows, scores, P.V and FF."""
+    """Multiply-adds x 2 of one forward launch: encoder QKV, scores, P.V
+    and FF; decoder Q, K/V over T rows, scores, P.V and FF."""
     enc = 2 * T * D * 3 * D + 2 * 2 * T * T * D + 2 * 2 * T * D * F
     dec = 2 * D * D + 2 * T * D * 2 * D + 2 * 2 * T * D + 2 * 2 * D * F
     return B * (enc + dec)
@@ -209,3 +551,16 @@ def block_bytes(B: int, T: int, D: int, F: int, elem: int) -> int:
     two float32 weight sets."""
     weights = 2 * 4 * (D * 3 * D + 8 * D + D * F + F + F * D)
     return elem * (B * T * D + 2 * B * D) + 4 * B * T + weights
+
+
+def block_bwd_flops(B: int, T: int, D: int, F: int) -> int:
+    """One backward launch: the forward's products replayed, then each
+    product's two gradient products (input and weight), so 3x."""
+    return 3 * block_flops(B, T, D, F)
+
+
+def block_bwd_bytes(B: int, T: int, D: int, F: int, elem: int) -> int:
+    """Inputs read once (enc_in, dec_in, g, mask, weights) and outputs
+    written once (d_enc, d_dec, float32 weight grads)."""
+    weights = 2 * 4 * (D * 3 * D + 8 * D + D * F + F + F * D)
+    return (2 * elem * (B * T * D + 2 * B * D) + 4 * B * T + 2 * weights)

@@ -1,15 +1,24 @@
 """Embedding engine: the lookups a model makes, behind one object.
 
-Single device, forward only.  The reference engine
+Single device.  The reference engine
 (``cikm2020_dmt_tpu/parallel/embedding_shard.py``) routes large tables
 through dedup, one-hot or packed-row gathers; those exist for the TPU's
-scatter and tiling costs and change no forward value, so here every lookup
-is a clamped gather of a logical ``[R, D]`` table.  The ``name`` argument
-names the table, as in the reference, for engines that treat tables apart
-(row sharding, lazy-Adam overlays).
+scatter and tiling costs and change no value, so here a lookup is a clamped
+gather of a logical ``[R, D]`` table, differentiated by PyTorch's own
+autograd (a scatter-add, accumulated in float32 for bfloat16 tables and
+rounded once, as the reference's one-hot backward does).
+
+During a training step the trainer sets ``overlay``: table name ->
+``train.lazy.LazyOverlay``.  Lookups of an overlaid table then slice the
+step's id-union grid at the site of their feature (``overlay_take``),
+which keeps that table's gradient row-sparse.  The ``name`` argument names
+the table, as in the reference; bias-net tables are namespaced
+``bias:<table>``, so no overlay reaches them.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -17,16 +26,33 @@ from ..nn.embedding import pooled_from_grid, take_clip
 
 
 class EmbeddingEngine:
-    """Replicated-table engine: plain clamped gathers."""
+    """Replicated-table engine: plain clamped gathers, or the lazy-Adam
+    overlay of the current training step."""
 
-    def pooled(self, name: str, table: torch.Tensor, ids, wts, lens
-               ) -> torch.Tensor:
-        """Mean of the present rows: ``[B, L] -> [B, D]``."""
-        return pooled_from_grid(take_clip(table, ids), wts, lens)
+    def __init__(self):
+        self.overlay: dict = {}
 
-    def seq(self, name: str, table: torch.Tensor, ids) -> torch.Tensor:
-        """Per-position rows, not zero-padded: ``[B, L] -> [B, L, D]``."""
+    def _take(self, name: str, table: torch.Tensor, ids,
+              feature: Optional[str]) -> torch.Tensor:
+        ov = self.overlay.get(name)
+        if ov is not None:
+            from ..train.lazy import overlay_take
+            return overlay_take(ov, feature, ids)
+        if table.dtype == torch.bfloat16 and table.requires_grad:
+            # float32 gradient accumulation, one rounding to the table type
+            return take_clip(table.float(), ids).to(table.dtype)
         return take_clip(table, ids)
+
+    def pooled(self, name: str, table: torch.Tensor, ids, wts, lens,
+               feature: Optional[str] = None) -> torch.Tensor:
+        """Mean of the present rows: ``[B, L] -> [B, D]``."""
+        return pooled_from_grid(self._take(name, table, ids, feature), wts,
+                                lens)
+
+    def seq(self, name: str, table: torch.Tensor, ids,
+            feature: Optional[str] = None) -> torch.Tensor:
+        """Per-position rows, not zero-padded: ``[B, L] -> [B, L, D]``."""
+        return self._take(name, table, ids, feature)
 
 
 DENSE_ENGINE = EmbeddingEngine()

@@ -1,0 +1,199 @@
+"""Lazy (row-sparse) Adam for the large embedding tables
+(``cikm2020_dmt_tpu/train/lazy.py``), single device.
+
+Per step and per planned table:
+
+1. ``collect``, before the loss: the batch's id union over every feature
+   of the table is sorted once (``torch.sort``, stable).  Ids fall into
+   groups of ``spec.group`` consecutive rows; the run index of the sorted
+   groups is each distinct group's slot, the distinct groups are compacted
+   into a budget of U slots (the unused tail filled with distinct
+   out-of-range sentinels), ``uids`` lists the U * group rows of those
+   slots, ``pos`` carries each element's row slot back to batch order, and
+   groups past the budget map to the overflow slot and are counted.
+2. The loss differentiates ``rows = table[uids]``: ``make_overlay``
+   gathers the whole union in one ``take_rows_sparse_sorted`` whose
+   backward is one segment sum (the CUDA kernel on the card), and each
+   lookup slices its feature's range out of that grid (``overlay_take``,
+   keyed by feature name).  Under overflow the forward stays exact: the
+   missed elements read their true table rows (``lazy_overflow_exact``).
+3. ``lazy_adam_rows`` runs Adam on the [U * group, D] block and writes the
+   rows of the table and of the [2, R, D] moments back in place
+   (``update_rows`` and ``update_rows_3d``, CUDA kernels on the card);
+   sentinel, padding and overflow slots are dropped.
+
+Semantics are LazyAdam: rows a step does not touch keep stale moments.
+Tables are logical [R, D] rows here, but the unit of a lazy update is the
+reference's: where the reference stores a table 128-lane packed
+(``packed_tables``, at least ``pack_rows_threshold`` rows), one packed row
+of 128 // D logical rows is one lazy-Adam row, so a logical row that
+shares a packed row with a touched one has its moments decayed and its
+value moved with it.  ``spec.group`` is that pack factor (1 otherwise).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from ..core.config import DMTConfig
+from ..data.pipeline import IDS
+from ..nn.embedding import pack_factor
+from ..ops.scatter_rows import (take_rows_sparse_sorted, update_rows,
+                                update_rows_3d)
+from .optim import B1, B2, EPS
+
+
+@dataclass(frozen=True)
+class LazyTableSpec:
+    """Static plan for one lazily updated table."""
+    name: str                             # params["emb"] key
+    fields: tuple[tuple[str, int], ...]   # (feature, id_size)
+    dim: int
+    group: int = 1                        # rows updated together
+
+
+@dataclass
+class LazyCollection:
+    """Per-step index structures, computed before the loss."""
+    uids: torch.Tensor        # [U * group] ascending rows, >= R: dropped
+    pos: torch.Tensor         # [N] row slot of each element (overflow: last)
+    rows: torch.Tensor        # [U * group, D] gathered rows, before update
+    offsets: dict             # feature -> (offset, numel) in the union
+    rows_total: int           # R
+    overflow: torch.Tensor    # distinct groups past the budget
+    order: torch.Tensor       # [N] union index of each sorted position
+    seg_sorted: torch.Tensor  # [N] slot of each sorted position
+    ids: torch.Tensor         # [N] clamped ids in union order
+
+
+@dataclass
+class LazyOverlay:
+    """What the engine consults per lookup: the union grid and its sites."""
+    grid: torch.Tensor        # [N, D], differentiable
+    offsets: dict             # feature -> (offset, numel)
+
+
+def build_lazy_plan(cfg: DMTConfig) -> tuple[LazyTableSpec, ...]:
+    """Tables under lazy Adam: the flag on, Adam, no dense weight decay,
+    at least ``dedup_rows_threshold`` rows, and no timestamp feature (those
+    ids are re-bucketed inside the model)."""
+    if not (cfg.lazy_adam and cfg.optimizer.lower() == "adam"
+            and cfg.wnd_wd <= 1e-5):
+        return ()
+    ts_feats = frozenset(cfg.attention_ts)
+    by_table: dict[str, list] = {}
+    for spec in cfg.embeddings:
+        by_table.setdefault(spec.table, []).append(spec)
+    return tuple(
+        LazyTableSpec(name, tuple((s.feature, s.id_size) for s in specs),
+                      specs[0].dim,
+                      pack_factor(specs[0].dim)
+                      if cfg.packed_tables
+                      and specs[0].id_size >= cfg.pack_rows_threshold else 1)
+        for name, specs in by_table.items()
+        if max(s.id_size for s in specs) >= cfg.dedup_rows_threshold
+        and not any(s.feature in ts_feats for s in specs))
+
+
+def budget(n: int, budget_div: int) -> int:
+    """U = round8(max(256, n // budget_div))."""
+    return ((max(256, n // max(1, budget_div)) + 7) // 8) * 8
+
+
+def collect(spec: LazyTableSpec, batch: dict, table: torch.Tensor,
+            budget_div: int) -> LazyCollection:
+    R, p = table.shape[0], spec.group
+    parts, offsets, off = [], {}, 0
+    for feature, _ in spec.fields:
+        flat = batch[feature + IDS].reshape(-1).long()
+        offsets[feature] = (off, flat.numel())
+        off += flat.numel()
+        parts.append(flat)
+    ids = torch.cat(parts).clamp(0, R - 1)
+    n = ids.numel()
+    U = budget(n, budget_div)
+    s, order = torch.sort(ids, stable=True)
+    grp = s // p
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[1:] = grp[1:] != grp[:-1]
+    seg = torch.cumsum(first, 0) - 1
+    # distinct groups ascend: sorting first-of-run groups among sentinels
+    # puts exactly the distinct groups first
+    groups = -(-R // p)
+    compact = torch.sort(torch.where(first, grp,
+                                     torch.full_like(grp, groups)))[0]
+    ug = torch.full((U,), groups, dtype=torch.int64, device=ids.device)
+    ug[:min(U, n)] = compact[:U]
+    ug = torch.where(ug >= groups, groups + torch.arange(U, device=ids.device),
+                     ug)
+    uids = (ug[:, None] * p + torch.arange(p, device=ids.device)).reshape(-1)
+    seg_sorted = torch.where(seg < U, seg * p + s % p,
+                             torch.full_like(seg, U * p))
+    pos = torch.empty_like(seg_sorted).scatter_(0, order, seg_sorted)
+    rows = table.index_select(0, uids.clamp(max=R - 1))
+    overflow = (first.sum() - U).clamp(min=0)
+    return LazyCollection(uids, pos, rows, offsets, R, overflow, order,
+                          seg_sorted, ids)
+
+
+def make_overlay(col: LazyCollection, rows_diff: torch.Tensor,
+                 table: torch.Tensor = None) -> LazyOverlay:
+    """The union grid, inside the differentiated function: ``rows_diff``
+    is the diff leaf.  With ``table`` (cfg.lazy_overflow_exact) elements
+    past the budget read their true rows (no gradient) instead of the zero
+    row; the gather runs every step, which costs one [N, D] pass and keeps
+    the step free of host synchronisation."""
+    rows_ext = torch.cat([rows_diff, rows_diff.new_zeros(
+        (1, rows_diff.shape[1]))])
+    grid = take_rows_sparse_sorted(rows_ext, col.pos, col.order,
+                                   col.seg_sorted)
+    if table is not None:
+        miss = (col.pos >= rows_diff.shape[0])[:, None]
+        fallback = table.detach().index_select(0, col.ids).to(grid.dtype)
+        grid = torch.where(miss, fallback, grid)
+    return LazyOverlay(grid, col.offsets)
+
+
+def overlay_take(ov: LazyOverlay, feature: str, ids) -> torch.Tensor:
+    """A lookup through the overlay: this feature's slice of the grid."""
+    site = ov.offsets.get(feature)
+    if site is None or site[1] != ids.numel():
+        raise RuntimeError(
+            f"lazy-Adam overlay: feature {feature!r} is not a site this "
+            "step collected; exclude its table from lazy Adam or look it up "
+            "by its feature name")
+    off, numel = site
+    return ov.grid[off:off + numel].reshape(*ids.shape, ov.grid.shape[-1])
+
+
+def lazy_adam_rows(table: torch.Tensor, mv: torch.Tensor,
+                   uids: torch.Tensor, rows: torch.Tensor,
+                   g_rows: torch.Tensor, count: torch.Tensor,
+                   schedule: Callable):
+    """One LazyAdam step on the touched rows, written in place into
+    ``table`` [R, D] and ``mv`` [2, R, D] (float32 m and v).  ``count`` is
+    the post-increment update number: lr = schedule(count - 1), bias
+    correction by ``count``, one rounding to the table's type.  Returns
+    (table, mv)."""
+    R = table.shape[0]
+    U = uids.shape[0]
+    lr = schedule(count - 1)
+    safe = uids.clamp(max=R - 1)
+    mvu = mv.index_select(1, safe)
+    g32 = g_rows.float()
+    m_new = B1 * mvu[0] + (1.0 - B1) * g32
+    v_new = B2 * mvu[1] + (1.0 - B2) * (g32 * g32)
+    c = count.float()
+    mhat = m_new / (1.0 - torch.pow(torch.tensor(B1, device=c.device), c))
+    vhat = v_new / (1.0 - torch.pow(torch.tensor(B2, device=c.device), c))
+    p_new = (rows.float() - lr * mhat / (torch.sqrt(vhat) + EPS)
+             ).to(table.dtype)
+    update_rows(table, uids, p_new)
+    real = uids < R
+    ids2 = torch.cat([torch.where(real, uids, 2 * R),
+                      torch.where(real, uids + R, 2 * R)])
+    update_rows_3d(mv, ids2, torch.cat([m_new, v_new]).reshape(2 * U, -1))
+    return table, mv

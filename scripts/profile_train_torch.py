@@ -1,0 +1,90 @@
+"""Where one training step's time goes, for the PyTorch port on one card.
+
+Run from the repo root on a machine with a CUDA card:
+
+    python3 scripts/profile_train_torch.py
+
+Builds the kernels and runs ``chip_smoke.train_phase``: the flagship model
+of ``conf/dmt.conf`` at full width, trained at its batch size (2048) with
+dropout on, whose step time (CUDA events over 10 steps after 3 warm-up
+steps) is the one ``chip_smoke.py`` prints.  Then it traces 3 more steps
+with ``torch.profiler`` and prints, per step: the device time of the
+kernels by group (the port's five kernels, matrix products, gathers and
+scatters, sorts, other kernels, copies), the number of kernels launched
+and of PyTorch operators called, the device's busy share of the
+unprofiled step, and the ten kernels with the most device time.
+
+The last line is one JSON object with these numbers; the Chrome trace goes
+to ``chiprun_out/profile_train_torch.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke  # noqa: E402
+from torch_profile import breakdown, print_breakdown  # noqa: E402
+
+PROFILED_STEPS = 3
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_train_torch: no CUDA card", file=sys.stderr)
+        return 2
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from cikm2020_dmt_torch.core.config import DMTConfig
+    from cikm2020_dmt_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    _build.build(chip_smoke.KERNELS)
+    cfg = DMTConfig.from_ini(chip_smoke.CONF)
+    run = chip_smoke.train_phase(cfg, dev)
+    tr, state, metrics = run["trainer"], run["state"], run["metrics"]
+    batches, step_ms = run["batches"], run["step_ms"]
+
+    n = PROFILED_STEPS
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            with record_function("step"):
+                state, metrics, _ = tr.train_step(
+                    state, metrics, batches[i % len(batches)], run["gen"])
+        torch.cuda.synchronize()
+    b = breakdown(prof, n, "step")
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "profile_train_torch.json"))
+
+    batch = chip_smoke.TRAIN_BATCH
+    print(f"card: {torch.cuda.get_device_name(0)}")
+    print(f"step at batch {batch} (chip_smoke.train_phase, unprofiled): "
+          f"{step_ms:.3f} ms, {run['examples_per_s']:.1f} examples/s")
+    print(f"device time per step: {b['device_ms']:.3f} ms "
+          f"({100 * b['device_ms'] / step_ms:.1f}% of the step)")
+    print(f"kernels per step: {b['kernels']:.1f}; aten operators per step: "
+          f"{b['aten_ops']:.1f}")
+    print_breakdown(b)
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0), "profiled_steps": n,
+        "batch": batch, "step_ms": step_ms,
+        "examples_per_s": run["examples_per_s"],
+        "device_ms_per_step": b["device_ms"],
+        "device_busy_share": b["device_ms"] / step_ms,
+        "device_ms_by_group": b["by_group"],
+        "kernels_per_step": b["kernels"],
+        "aten_ops_per_step": b["aten_ops"]}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -42,3 +42,177 @@ def test_kernel_matches_plain_version_on_card(T_, dtype, cuda_device):
     torch.cuda.synchronize()
     tol = 1e-4 if dt == torch.float32 else 3e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _block_case(T_, dt, dev, B=301, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = transformer_init(gen, TransformerConfig(maxlen_k=T_))
+    enc = torch.randn(B, T_, 80, generator=gen, device=dev).to(dt)
+    dec = torch.randn(B, 80, generator=gen, device=dev).to(dt)
+    lens = torch.arange(B, device=dev) % (T_ + 1)
+    mask = (torch.arange(T_, device=dev)[None] < lens[:, None]).float()
+    seed_t = torch.tensor([12345], dtype=torch.int32, device=dev)
+    kw = dict(enc_in=enc, dec_in=dec, seq_mask=mask, num_heads=4,
+              train=True, rate=0.1, seed=seed_t)
+    return p, kw
+
+
+def _rel_err(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp(min=1e-30))
+
+
+def _norm_err(got, want):
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp(min=1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T_", [10, 50])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_forward_and_backward_match_plain_on_card(T_, dtype,
+                                                        cuda_device):
+    """Dropout on (rate 0.1): the forward kernel and the backward kernel
+    against their plain versions on the same masks.  The forward's error is
+    relative to its largest |value|: float32 differs only in the order of
+    sums; bfloat16 may flip the rounding of an operand.  The backward's is
+    norm-wise per output: besides the sum order, a ReLU whose
+    pre-activation lies within rounding of 0 can take the other branch in
+    the kernel's replay, which moves a few weight-grad elements by a whole
+    term."""
+    dt = getattr(torch, dtype)
+    p, kw = _block_case(T_, dt, cuda_device)
+    got = block.fused_encode_decode(p["enc"][0], p["dec"][0], **kw)
+    want = block.fused_encode_decode_ref(p["enc"][0], p["dec"][0], **kw)
+    tol = 1e-4 if dt == torch.float32 else 3e-2
+    assert _rel_err(got, want) <= tol
+    g = torch.randn(want.shape, device=cuda_device).to(dt)
+    ew, dw = block.pack_weights(p["enc"][0]), block.pack_weights(p["dec"][0])
+    bkw = {k: v for k, v in kw.items()}
+    got = block.fused_block_bwd(ew, dw, g=g, **bkw)
+    want = block.fused_block_bwd_ref(ew, dw, g=g, **bkw)
+    flat_got = (got[0], got[1]) + tuple(got[2])
+    flat_want = (want[0], want[1]) + tuple(want[2])
+    if dt == torch.float32:
+        # ReLU flips: up to 5.0e-4 norm-wise measured (chip_smoke.py, whose
+        # bwd_rounding_report holds both versions against float64)
+        tols = [1e-2] * len(flat_want)
+    else:
+        # bfloat16 rounds every product operand, and a sum in another
+        # order flips roundings: hold both against the float32 plain
+        # version, the kernel within twice the plain version's error (plus
+        # the float32 tolerance)
+        kw32 = dict(bkw, enc_in=bkw["enc_in"].float(),
+                    dec_in=bkw["dec_in"].float())
+        r32 = block.fused_block_bwd_ref(ew, dw, g=g.float(), **kw32)
+        flat_32 = (r32[0], r32[1]) + tuple(r32[2])
+        tols = [2 * _norm_err(b, c) + 1e-2
+                for b, c in zip(flat_want, flat_32)]
+        flat_want = flat_32
+    torch.cuda.synchronize()
+    for i, (a, b, tol) in enumerate(zip(flat_got, flat_want, tols)):
+        assert a.shape == b.shape and torch.isfinite(a.float()).all(), i
+        assert _norm_err(a, b) <= tol, (i, _norm_err(a, b), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [32, 40])
+def test_segsum_matches_plain_on_card(dtype, D, cuda_device):
+    """Zipf-like ids with one run far longer than a chunk, unnamed tail
+    slots, and an overflow slot collecting every id past the budget."""
+    from cikm2020_dmt_torch.ops import scatter_rows as sr
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    N = 5000
+    ids = torch.randint(0, 900, (N,), generator=gen, device=cuda_device)
+    ids[:2000] = 0
+    s, order = torch.sort(ids, stable=True)
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[1:] = s[1:] != s[:-1]
+    seg = torch.cumsum(first.long(), 0) - 1
+    U = 300
+    seg = seg.clamp(max=U)
+    g = torch.randn(N, D, generator=gen, device=cuda_device).to(dt)
+    got = sr.sorted_segment_sum_rows(g, order, seg, U + 5)
+    want = sr.sorted_segment_sum_rows_ref(g, order, seg, U + 5)
+    # float32 sums taken in another order: the error scales with a run's
+    # sum of |g|
+    mag = sr.sorted_segment_sum_rows_ref(g.abs(), order, seg, U + 5)
+    torch.cuda.synchronize()
+    assert ((got - want).abs() <= 1e-6 * mag + 1e-6).all()
+    assert (got[U + 1:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_update_rows_match_plain_on_card(dtype, cuda_device):
+    from cikm2020_dmt_torch.ops import scatter_rows as sr
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    R, D, n = 1000, 32, 200
+    table = torch.randn(R, D, generator=gen, device=cuda_device).to(dt)
+    ids = torch.randperm(R, generator=gen, device=cuda_device)[:n]
+    ids[:10] = R + torch.arange(10, device=cuda_device)   # sentinels
+    ids[10:15] = -1 - torch.arange(5, device=cuda_device)  # dropped
+    rows = torch.randn(n, D, generator=gen, device=cuda_device).to(dt)
+    got = sr.update_rows(table.clone(), ids, rows)
+    want = sr.update_rows_ref(table.clone(), ids, rows)
+    mv = torch.randn(2, R, D, generator=gen, device=cuda_device)
+    real = (ids >= 0) & (ids < R)
+    ids2 = torch.cat([torch.where(real, ids, 2 * R),
+                      torch.where(real, ids + R, -1)])
+    rows2 = torch.randn(2 * n, D, generator=gen, device=cuda_device)
+    got3 = sr.update_rows_3d(mv.clone(), ids2, rows2)
+    want3 = sr.update_rows_3d_ref(mv.clone(), ids2, rows2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got3, want3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T_", [10, 50])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_is_deterministic_on_card(T_, dtype, cuda_device):
+    """Two launches of the backward kernel on the same inputs give the same
+    bits: each partial element has one owner and the partials are summed
+    in a fixed order."""
+    dt = getattr(torch, dtype)
+    p, kw = _block_case(T_, dt, cuda_device, B=517)
+    g = torch.randn(517, 80, device=cuda_device).to(dt)
+    ew, dw = block.pack_weights(p["enc"][0]), block.pack_weights(p["dec"][0])
+    first = block.fused_block_bwd(ew, dw, g=g, **kw)
+    second = block.fused_block_bwd(ew, dw, g=g, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip((first[0], first[1]) + tuple(first[2]),
+                    (second[0], second[1]) + tuple(second[2])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_segsum_with_skipped_slots_matches_plain_on_card(dtype, cuda_device):
+    """The lazy-Adam union of a grouped table: slot = group run index * 4
+    + the row within the group, so slots no id names are skipped (and
+    stay zero), and every group past the budget goes to the last slot."""
+    from cikm2020_dmt_torch.ops import scatter_rows as sr
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    N, U, p = 5000, 200, 4
+    ids = torch.randint(0, 4000, (N,), generator=gen, device=cuda_device)
+    ids[:1500] = 7
+    s, order = torch.sort(ids, stable=True)
+    grp = s // p
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[1:] = grp[1:] != grp[:-1]
+    seg = torch.cumsum(first.long(), 0) - 1
+    seg = torch.where(seg < U, seg * p + s % p, torch.full_like(seg, U * p))
+    g = torch.randn(N, 32, generator=gen, device=cuda_device).to(dt)
+    got = sr.sorted_segment_sum_rows(g, order, seg, U * p + 1)
+    want = sr.sorted_segment_sum_rows_ref(g, order, seg, U * p + 1)
+    mag = sr.sorted_segment_sum_rows_ref(g.abs(), order, seg, U * p + 1)
+    torch.cuda.synchronize()
+    assert ((got - want).abs() <= 1e-6 * mag + 1e-6).all()
+    named = torch.zeros(U * p + 1, dtype=torch.bool, device=cuda_device)
+    named[seg] = True
+    assert (~named).any() and (got[~named] == 0).all()

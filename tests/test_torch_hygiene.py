@@ -81,3 +81,37 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc_path()
+
+
+def test_trainer_default_device_needs_cuda():
+    """``Trainer`` defaults to the card and raises where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from cikm2020_dmt_torch.core.config import DMTConfig
+    from cikm2020_dmt_torch.train.loop import Trainer
+    cfg = DMTConfig.from_ini(str(ROOT / "conf" / "dmt.conf"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(cfg)
+
+
+@pytest.mark.parametrize("name", ["sorted_segment_sum_rows", "update_rows",
+                                  "update_rows_3d", "fused_block_bwd"])
+def test_training_wrappers_raise_off_cpu_and_cuda(name):
+    """The training kernels' wrappers, like the forward's, take the plain
+    version only for CPU tensors and raise on any other device."""
+    from cikm2020_dmt_torch.ops import block, scatter_rows
+    meta = torch.empty((4, 3, 8), device="meta")
+    ids = torch.empty((4,), dtype=torch.int64, device="meta")
+    calls = {
+        "sorted_segment_sum_rows": lambda: scatter_rows
+        .sorted_segment_sum_rows(meta[:, 0], ids, ids, 4),
+        "update_rows": lambda: scatter_rows.update_rows(meta[:, 0], ids,
+                                                        meta[:, 0]),
+        "update_rows_3d": lambda: scatter_rows.update_rows_3d(
+            meta[:2], ids, meta[:, 0]),
+        "fused_block_bwd": lambda: block.fused_block_bwd(
+            (), (), enc_in=meta, dec_in=meta[:, 0], seq_mask=meta[..., 0],
+            g=meta[:, 0], num_heads=2),
+    }
+    with pytest.raises(ValueError, match="unsupported device"):
+        calls[name]()
