@@ -5,10 +5,13 @@ Run from the root of a checkout on a machine with one CUDA card (H100):
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``cikm2020_dmt_torch/csrc``
-(one ``nvcc`` per source, all started together) and drives the port's two
-paths on the flagship model of ``conf/dmt.conf`` at full width
-(mmoe_transformer_unbias, Sku 5,000,000 x 32 in bf16, d_model 80), random
-weights from a seeded ``torch.Generator``:
+(one ``nvcc`` per source, all started together) and drives the port's
+paths at full width, random weights from a seeded ``torch.Generator``, on
+two configurations:
+
+``conf/dmt.conf``, the flagship (mmoe_transformer_unbias, Sku 5,000,000 x
+32 in bf16, d_model 80, one encoder and one decoder block per sequence,
+which run the fused block kernels):
 
 - serving: three requests of 300 candidates through ``serve.export.Scorer``;
   checks 3 fused-block forward launches per request, the card's Scores
@@ -19,6 +22,16 @@ weights from a seeded ``torch.Generator``:
   and 1 update_rows_3d launches per step, a finite loss that falls over 20
   steps on one batch, and times the steps (examples/s).
 
+``conf/dmt_2block.conf`` (the same model with two encoder and two decoder
+blocks per sequence and no transformer dropout, which run the per-op path
+and its attention kernels):
+
+- serving: as above, 12 attention-forward launches per request;
+- eval: ``train.evaluate.run_eval`` on 4 batches of 4096, 12
+  attention-forward launches per batch, one batch against the CPU;
+- training: as above at dropout 0, 12 attention-forward and 12
+  attention-backward launches per step besides the lazy update's three.
+
 Each path is driven with every launch count set to 0 just before it and
 read just after.  Then every kernel is held against its plain PyTorch
 version on the card at the paths' shapes, and timed beside its bound and,
@@ -26,13 +39,14 @@ where one PyTorch call computes the same function, that call.
 
 Every check raises on failure.  Before the last line it prints the card's
 name and power limit (``nvidia-smi``) and one JSON line ``{"kernels":
-[...]}``; the last line is ``{"ok": true, "device": {...}}``.  Without a
-CUDA card it exits with code 2 and prints no result.
+[...]}`` (seven kernels); the last line is ``{"ok": true, "device":
+{...}}``.  Without a CUDA card it exits with code 2 and prints no result.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -45,6 +59,7 @@ import torch
 
 CONF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "conf",
                     "dmt.conf")
+CONF_2BLOCK = os.path.join(os.path.dirname(CONF), "dmt_2block.conf")
 SEED = 0
 CANDIDATES = 300
 # u-side sequence lengths (click, order, cart) of the three requests:
@@ -84,7 +99,7 @@ TRAIN_BATCH = 2048          # conf/dmt.conf batch_size
 CHECK_BATCH = 256           # the card-vs-CPU step
 DROPOUT = 0.1               # conf/dmt.conf transformer_dropout_rate
 KERNELS = ("fused_block_fwd", "fused_block_bwd", "sorted_segsum",
-           "update_rows")
+           "update_rows", "attention_fwd", "attention_bwd")
 
 
 def log(msg: str) -> None:
@@ -144,13 +159,37 @@ def check_scores(out: dict, n: int) -> None:
             raise AssertionError(f"{k}: probabilities outside (0, 1)")
 
 
+@functools.cache
+def _sleep_cycles_per_ms() -> float:
+    """Cycles of ``torch.cuda._sleep`` per device millisecond, measured
+    once."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(10 ** 7)
+    end.record()
+    torch.cuda.synchronize()
+    return 10 ** 7 / start.elapsed_time(end)
+
+
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean milliseconds of ``fn`` on the card over ``iters`` calls."""
+    """Mean device milliseconds of ``fn`` over ``iters`` calls.  The timed
+    calls are queued behind a device-side sleep that outlasts the host's
+    time to issue them (measured on an untimed pass), so the events time
+    the device's work back to back, not the host's launch overhead; a call
+    that synchronises falls back to the host's pace from there on."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(_sleep_cycles_per_ms() * (1.5 * host_ms + 1.0)))
     start.record()
     for _ in range(iters):
         fn()
@@ -177,11 +216,12 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return t_bytes * 1e3, "bytes"
 
 
-def serve_phase(cfg, dev) -> dict:
-    """The serving path, its checks and times; the fused block forward's
-    entry of the kernels line."""
+def serve_path(cfg, dev, per_request: dict) -> dict:
+    """The serving path on ``cfg`` at full width: three requests, counted,
+    launching exactly ``per_request`` kernels per request and nothing
+    else; their Scores against the same Scorer on the CPU; request
+    latency.  Returns the params and the path's numbers."""
     from cikm2020_dmt_torch.models.zoo import build_model
-    from cikm2020_dmt_torch.ops import block
     from cikm2020_dmt_torch.serve.export import Scorer, norm_constants
 
     t0 = time.perf_counter()
@@ -202,14 +242,12 @@ def serve_phase(cfg, dev) -> dict:
     reset_counts()
     card = [scorer(r) for r in requests]
     torch.cuda.synchronize()
-    launches = block.fused_encode_decode.launches
+    counts = read_counts()
     log(f"serving path: {len(requests)} requests of {CANDIDATES}, "
-        f"launches {json.dumps(read_counts())}")
-    want = 3 * len(requests)
-    if launches != want or any(v for k, v in read_counts().items()
-                               if k != "fused_block_fwd"):
-        raise AssertionError(f"serving launched {read_counts()}, expected "
-                             f"{want} fused_block_fwd and nothing else")
+        f"launches {json.dumps(counts)}")
+    want = {k: per_request.get(k, 0) * len(requests) for k in counts}
+    if counts != want:
+        raise AssertionError(f"serving launched {counts}, expected {want}")
     for out in card:
         check_scores(out, CANDIDATES)
 
@@ -251,6 +289,19 @@ def serve_phase(cfg, dev) -> dict:
     log(f"request latency over {len(lat)} requests of {CANDIDATES}: p50 "
         f"{p50:.3f} ms, p90 {p90:.3f} ms; group of {len(requests)}: "
         f"{group_ms:.3f} ms")
+    return {"params": params, "counts": counts, "p50": p50, "p90": p90,
+            "group_ms": group_ms, "scores_err": s_err}
+
+
+def serve_phase(cfg, dev) -> tuple[dict, dict]:
+    """The flagship's serving path (3 fused-block forward launches per
+    request): the fused block forward's entry of the kernels line, and the
+    path's numbers."""
+    from cikm2020_dmt_torch.ops import block
+
+    serve = serve_path(cfg, dev, {"fused_block_fwd": 3})
+    params, launches = serve["params"], serve["counts"]["fused_block_fwd"]
+    p50 = serve["p50"]
 
     # ---- the kernel against its plain version, and its times ----
     trans = params["trans"]
@@ -314,13 +365,15 @@ def serve_phase(cfg, dev) -> dict:
                         "LN, FF)",
         "unit": "ms per request: 2 launches at T=50 + 1 at T=10, B=300",
         "shapes": shapes,
-    }
+    }, serve
 
 
 def _counted():
-    from cikm2020_dmt_torch.ops import block, scatter_rows
+    from cikm2020_dmt_torch.ops import attention, block, scatter_rows
     return {"fused_block_fwd": block.fused_encode_decode,
             "fused_block_bwd": block.fused_block_bwd,
+            "attention_fwd": attention.fused_attention,
+            "attention_bwd": attention.fused_attention_bwd,
             "sorted_segsum": scatter_rows.sorted_segment_sum_rows,
             "update_rows": scatter_rows.update_rows,
             "update_rows_3d": scatter_rows.update_rows_3d}
@@ -504,16 +557,25 @@ def batch_ids(cfg, batch, table):
                       for s in cfg.embeddings if s.table == table])
 
 
-EXPECTED_PER_STEP = {"fused_block_fwd": 3, "fused_block_bwd": 3,
-                     "sorted_segsum": 1, "update_rows": 1,
-                     "update_rows_3d": 1}
+# launches per training step, by config: the flagship's 1+1 stacks run the
+# fused block; the 2+2 stacks run the per-op path, whose attention core is
+# the attention kernel at dropout 0: 3 sequences x (2 encoder + 2 decoder
+# blocks)
+LAZY_PER_STEP = {"sorted_segsum": 1, "update_rows": 1, "update_rows_3d": 1}
+EXPECTED_PER_STEP = {
+    "dmt": {"fused_block_fwd": 3, "fused_block_bwd": 3, **LAZY_PER_STEP},
+    "dmt_2block": {"attention_fwd": 12, "attention_bwd": 12,
+                   **LAZY_PER_STEP},
+}
 
 
-def train_phase(cfg, dev) -> dict:
-    """The training path at batch 2048 with dropout on: 3 warm-up steps,
-    10 timed steps (counted), then 20 steps on one batch whose loss must
-    fall.  Returns the step's numbers, and the trainer with its state,
-    metrics, dropout generator and batches for what runs after it."""
+def train_phase(cfg, dev, expected: dict) -> dict:
+    """The training path at batch 2048 with the config's dropout: 3
+    warm-up steps, 10 timed steps (counted: exactly ``expected`` launches
+    per step, every other kernel none), then 20 steps on one batch whose
+    loss must fall.  Returns the step's numbers, and the trainer with its
+    state, metrics, dropout generator and batches for what runs after
+    it."""
     from cikm2020_dmt_torch.metrics.streaming import (task_metrics_init,
                                                       task_metrics_values)
     from cikm2020_dmt_torch.train.loop import Trainer
@@ -550,15 +612,16 @@ def train_phase(cfg, dev) -> dict:
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     losses = [float(x) for x in losses]
     log(f"training path: {steps} steps at batch {TRAIN_BATCH}, dropout "
-        f"{DROPOUT}: launches {json.dumps(counts)}")
+        f"{cfg.transformer.dropout_rate}: launches {json.dumps(counts)}")
     log(f"training step: {step_ms:.3f} ms (CUDA events; host clock "
         f"{wall_ms:.3f} ms), {eps:.1f} examples/s, peak memory "
         f"{peak_gb:.2f} GB, losses {losses[0]:.4f}..{losses[-1]:.4f}, "
         f"metrics {json.dumps(task_metrics_values(metrics))}")
-    for name, per in EXPECTED_PER_STEP.items():
-        if counts[name] != per * steps:
-            raise AssertionError(f"{name} launched {counts[name]} times in "
-                                 f"{steps} steps, expected {per} per step")
+    for name, n in counts.items():
+        per = expected.get(name, 0)
+        if n != per * steps:
+            raise AssertionError(f"{name} launched {n} times in {steps} "
+                                 f"steps, expected {per} per step")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite training loss: {losses}")
 
@@ -918,6 +981,292 @@ def update_phase(state, col, counts, dev):
     return entries
 
 
+def eval_phase(cfg, params, dev) -> dict:
+    """The eval path on ``cfg``: ``run_eval`` on 4 synthetic batches of
+    the config's validation batch size, counted (12 attention-forward
+    launches per batch, nothing else) and timed; one batch's metric values
+    and scores against the same eval on the CPU (within 1e-4)."""
+    from cikm2020_dmt_torch.models.zoo import build_model
+    from cikm2020_dmt_torch.train.evaluate import run_eval
+
+    n = cfg.validation_batch_size
+    model = build_model(cfg)
+    batches = [synthetic_batch(cfg, n, SEED + 200 + i, dev)
+               for i in range(4)]
+    run_eval(cfg, model, params, batches[:1], device=dev)  # warm-up
+
+    # ---- the main path: 4 batches, counted ----
+    reset_counts()
+    t0 = time.perf_counter()
+    vals, clk, ord_ = run_eval(cfg, model, params, batches, device=dev)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    eps = len(batches) * n / seconds
+    log(f"eval path: {len(batches)} batches of {n}: launches "
+        f"{json.dumps(counts)}; {seconds * 1e3 / len(batches):.3f} ms per "
+        f"batch (host clock, ends in the scores' copy), {eps:.1f} "
+        f"examples/s; metrics {json.dumps(vals)}")
+    want = {k: (12 * len(batches) if k == "attention_fwd" else 0)
+            for k in counts}
+    if counts != want:
+        raise AssertionError(f"eval launched {counts}, expected {want}")
+    if clk.shape != (len(batches) * n,) or not (
+            np.isfinite(clk).all() and np.isfinite(ord_).all()
+            and all(np.isfinite(v) for v in vals.values())):
+        raise AssertionError("eval: scores or metrics not finite")
+
+    # ---- one batch on the card against the CPU ----
+    t0 = time.perf_counter()
+    one = run_eval(cfg, model, params, batches[:1], device=dev)
+    ref = run_eval(cfg, model, params,
+                   [{k: v.cpu() for k, v in batches[0].items()}],
+                   device="cpu")
+    s_err = max(float(np.abs(a - b).max()) for a, b in zip(one[1:], ref[1:]))
+    m_err = max(abs(one[0][k] - ref[0][k]) for k in ref[0])
+    log(f"eval card vs CPU, one batch of {n}: scores max |diff| "
+        f"{s_err:.3e}, metric values max |diff| {m_err:.3e} (tol 1e-4), "
+        f"{time.perf_counter() - t0:.2f}s")
+    if not (s_err <= 1e-4 and m_err <= 1e-4):
+        raise AssertionError(f"eval card vs CPU: scores {s_err}, metrics "
+                             f"{m_err}")
+    return {"counts": counts, "ms_per_batch": seconds * 1e3 / len(batches),
+            "examples_per_s": eps, "batch": n}
+
+
+# (name, Tq, Tk, launches per step of the 2+2 stacks): the encoder's
+# self-attention and the decoder's single query, over the click and order
+# sequences (T=50) and the cart (T=10)
+ATTENTION_SHAPES = (("enc", 50, 50, 4), ("enc", 10, 10, 2),
+                    ("dec", 1, 50, 4), ("dec", 1, 10, 2))
+# the attention backward against its plain version: elementwise, relative
+# to each output's largest |value|.  Attention has no ReLU kink: float32
+# differs only in the order of sums
+ATT_BWD_TOL = 1e-4
+
+
+def _attention_inputs(B, Tq, Tk, dtype, gen, dev):
+    """Standard-normal q [B, Tq, 80], k, v [B, Tk, 80] and a cotangent;
+    key lengths cycling through 0..Tk; the encoder's query mask is its key
+    mask, the decoder's all ones."""
+    q, k, v, do = (torch.randn(B, t, 80, generator=gen, device=dev).to(dtype)
+                   for t in (Tq, Tk, Tk, Tq))
+    lens = torch.arange(B, device=dev) % (Tk + 1)
+    km = (torch.arange(Tk, device=dev)[None] < lens[:, None]).float()
+    qm = km if Tq == Tk else torch.ones(B, Tq, device=dev)
+    return q, k, v, qm, km, do
+
+
+def _max_rel(got, want):
+    return max(float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max().clamp(min=1e-30))
+               for a, b in zip(got, want))
+
+
+def bf16_ulp(x):
+    """Spacing of bfloat16 values at |x| (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp(min=2.0 ** -100)))
+                      - 7)
+
+
+# the bfloat16 attention forward against its plain version: both round the
+# same operands at the same points, and only the order of float32 sums
+# differs, so it rarely flips a rounding.  Per element, two flips of the
+# output's rounding (an ulp of |out|) and two of a probability's before
+# P v (an ulp of the row's largest probability times the head's largest
+# |v|) bound the difference; a kernel that rounds at other points differs
+# in a large share of the elements, so that share is held too
+ATT_BF16_DIFF_SHARE = 1e-2
+
+
+def bf16_attention_fwd_check(got, ref, q, k, v, qm, km, H=4):
+    """(largest |got - ref| over its per-element limit, share of elements
+    that differ at all) for a bfloat16 attention forward."""
+    from cikm2020_dmt_torch.ops.attention import attention_probs, heads, merge
+    p = attention_probs(heads(q.float(), H), heads(k.float(), H), km)
+    pmax = (p * qm[:, None, :, None]).amax(-1, keepdim=True)
+    vmax = heads(v.float().abs(), H).amax(2, keepdim=True)
+    limit = 2 * bf16_ulp(ref.float()) + merge(2 * bf16_ulp(pmax) * vmax)
+    diff = (got.float() - ref.float()).abs()
+    return float((diff / limit).max()), float((diff > 0).float().mean())
+
+
+def _sdpa_args(q, k, v, km):
+    """[B, H, T, dh] views and the additive float mask (0 or -2^32+1 at a
+    masked key) for scaled_dot_product_attention."""
+    from cikm2020_dmt_torch.ops.attention import NEG_INF, heads
+    mask = torch.where(km > 0, 0.0, NEG_INF)[:, None, None, :]
+    return [heads(t, 4) for t in (q, k, v)] + [mask]
+
+
+def attention_phase(counts: dict, dev) -> tuple[dict, dict]:
+    """Both attention kernels against their plain versions on the card at
+    every shape of the path (B = 300 serving, 2048 training, 4096 eval;
+    the four (Tq, Tk) of ``ATTENTION_SHAPES``), float32 and bfloat16;
+    the backward's two launches on the same inputs compared bit for bit;
+    float32 (the main path's type) timed beside the plain versions, the
+    bound and the SDPA yardstick.  ``counts`` holds each kernel's launches
+    on the main paths.  Returns the two entries of the kernels line."""
+    from cikm2020_dmt_torch.ops import attention as att
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    fshapes, bshapes = [], []
+    ferr = berr = ferr16 = 0.0
+    for B in (CANDIDATES, TRAIN_BATCH, 4096):
+        for part, Tq, Tk, per_step in ATTENTION_SHAPES:
+            for dtype in (torch.float32, torch.bfloat16):
+                dname = str(dtype).split(".")[-1]
+                q, k, v, qm, km, do = _attention_inputs(B, Tq, Tk, dtype,
+                                                        gen, dev)
+                got = att.fused_attention(q, k, v, qm, km, 4)
+                ref = att.fused_attention_ref(q, k, v, qm, km, 4)
+                gb = att.fused_attention_bwd(q, k, v, qm, km, do, 4)
+                again = att.fused_attention_bwd(q, k, v, qm, km, do, 4)
+                rb = att.fused_attention_bwd_ref(q, k, v, qm, km, do, 4)
+                torch.cuda.synchronize()
+                where = f"B={B} {part} Tq={Tq} Tk={Tk} {dname}"
+                if not all(torch.equal(a, b) for a, b in zip(gb, again)):
+                    raise AssertionError(f"attention_bwd at {where}: two "
+                                         "launches on the same inputs "
+                                         "differ")
+                f_err = float((got.float() - ref.float()).abs().max())
+                if dtype == torch.float32:
+                    b_err, tol, what = _max_rel(gb, rb), ATT_BWD_TOL, "plain"
+                    f_ok = f_err <= KERNEL_TOL[dtype]
+                    f_what = f"(tol {KERNEL_TOL[dtype]})"
+                else:
+                    r32 = att.fused_attention_bwd_ref(
+                        q.float(), k.float(), v.float(), qm, km, do.float(),
+                        4)
+                    plain = _max_rel(rb, r32)
+                    b_err = _max_rel(gb, r32)
+                    tol = BWD_BF16_FACTOR * plain + ATT_BWD_TOL
+                    what = f"float32 plain (bf16 plain {plain:.3e})"
+                    ratio, share = bf16_attention_fwd_check(got, ref, q, k, v,
+                                                            qm, km)
+                    f_ok = ratio <= 1.0 and share <= ATT_BF16_DIFF_SHARE
+                    f_what = (f"({ratio:.3f} of the per-element limit, "
+                              f"{share:.3e} of elements differ, at most "
+                              f"{ATT_BF16_DIFF_SHARE})")
+                log(f"attention {where}: forward max |diff| {f_err:.3e} "
+                    f"{f_what}; backward {b_err:.3e} of "
+                    f"each output's max vs {what} (tol {tol:.3e}); "
+                    "backward bitwise repeatable")
+                if not (torch.isfinite(got.float()).all() and f_ok):
+                    raise AssertionError(f"attention_fwd disagrees at "
+                                         f"{where}: {f_what}")
+                if not (all(torch.isfinite(t.float()).all() for t in gb)
+                        and b_err <= tol):
+                    raise AssertionError(f"attention_bwd disagrees at "
+                                         f"{where}: {b_err}")
+                if dtype != torch.float32:
+                    ferr16 = max(ferr16, f_err)
+                    continue
+                ferr = max(ferr, f_err)
+                berr = max(berr, max(float((a - b).abs().max())
+                                     for a, b in zip(gb, rb)))
+                fshapes.append(_time_attention_fwd(att, sdpa, B, Tq, Tk,
+                                                   part, per_step, q, k, v,
+                                                   qm, km))
+                bshapes.append(_time_attention_bwd(att, sdpa, B, Tq, Tk,
+                                                   part, per_step, q, k, v,
+                                                   qm, km, do))
+                del again
+
+    def per_step(shapes, key, B=TRAIN_BATCH):
+        """The sum over one request, eval batch or training step (they
+        launch the same 12 shapes) at batch size ``B``."""
+        return sum(s[key] * s["per_step"] for s in shapes if s["B"] == B)
+
+    def step_bound(flops, nbytes, B=TRAIN_BATCH):
+        return bound(sum(flops(B, tq, tk, 80) * n
+                         for _, tq, tk, n in ATTENTION_SHAPES),
+                     sum(nbytes(B, tq, tk, 80, 4) * n
+                         for _, tq, tk, n in ATTENTION_SHAPES))
+
+    def by_unit(shapes, flops, nbytes, units):
+        out = {}
+        for unit, B in units:
+            out[unit] = {"B": B, "bound_ms": step_bound(flops, nbytes, B)[0],
+                         **{k: per_step(shapes, k, B) for k in
+                            ("ms", "plain_ms", "library_ms")}}
+            log(f"{shapes[0]['kernel']} per {unit} (B={B}, 12 launches): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in out[unit].items()
+                            if k != "B"))
+        return out
+
+    unit = ("ms per training step of the 2+2 stacks: 4 launches at (Tq, "
+            "Tk) = (50, 50), 2 at (10, 10), 4 at (1, 50), 2 at (1, 10); "
+            "B=2048, f32")
+    fwd = _entry(
+        "attention_fwd", "cikm2020_dmt_torch/csrc/attention_fwd.cu",
+        "cikm2020_dmt_tpu/ops/attention.py:52", counts["attention_fwd"],
+        ferr, per_step(fshapes, "ms"), per_step(fshapes, "plain_ms"),
+        step_bound(att.attention_flops, att.attention_bytes),
+        per_step(fshapes, "library_ms"),
+        library_note="torch.nn.functional.scaled_dot_product_attention on "
+                     "[B, 4, T, 20] views with the additive float mask (0 "
+                     "or -2^32+1 at a masked key); the zeroing of absent "
+                     "query rows is not part of it",
+        unit=unit, max_abs_err_bf16=ferr16, shapes=fshapes,
+        by_unit=by_unit(fshapes, att.attention_flops, att.attention_bytes,
+                        (("request", CANDIDATES), ("eval_batch", 4096),
+                         ("training_step", TRAIN_BATCH))))
+    bwd = _entry(
+        "attention_bwd", "cikm2020_dmt_torch/csrc/attention_bwd.cu",
+        "cikm2020_dmt_tpu/ops/attention.py:89", counts["attention_bwd"],
+        berr, per_step(bshapes, "ms"), per_step(bshapes, "plain_ms"),
+        step_bound(att.attention_bwd_flops, att.attention_bwd_bytes),
+        per_step(bshapes, "library_ms"),
+        library_note="torch.autograd.grad through that SDPA call (its "
+                     "backward only: the graph is kept between calls)",
+        unit=unit, shapes=bshapes, deterministic=True,
+        by_unit=by_unit(bshapes, att.attention_bwd_flops,
+                        att.attention_bwd_bytes,
+                        (("training_step", TRAIN_BATCH),)))
+    return fwd, bwd
+
+
+def _time_attention_fwd(att, sdpa, B, Tq, Tk, part, per_step, q, k, v, qm,
+                        km) -> dict:
+    args = _sdpa_args(q, k, v, km)
+    ms = cuda_ms(lambda: att.fused_attention(q, k, v, qm, km, 4), 20)
+    plain = cuda_ms(lambda: att.fused_attention_ref(q, k, v, qm, km, 4), 10)
+    lib = cuda_ms(lambda: sdpa(*args[:3], attn_mask=args[3]), 10)
+    b = bound(att.attention_flops(B, Tq, Tk, 80),
+              att.attention_bytes(B, Tq, Tk, 80, 4))
+    log(f"attention_fwd B={B} {part} Tq={Tq} Tk={Tk} f32: kernel {ms:.4f} "
+        f"ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound {b[0]:.4f} ms "
+        f"({b[1]})")
+    return {"kernel": "attention_fwd", "B": B, "Tq": Tq, "Tk": Tk,
+            "part": part, "dtype": "float32", "per_step": per_step,
+            "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b[0],
+            "bound_by": b[1]}
+
+
+def _time_attention_bwd(att, sdpa, B, Tq, Tk, part, per_step, q, k, v, qm,
+                        km, do) -> dict:
+    ms = cuda_ms(lambda: att.fused_attention_bwd(q, k, v, qm, km, do, 4), 10)
+    plain = cuda_ms(lambda: att.fused_attention_bwd_ref(q, k, v, qm, km, do,
+                                                        4), 5)
+    *qkv, mask = _sdpa_args(*(t.detach().requires_grad_()
+                              for t in (q, k, v)), km)
+    out = sdpa(*qkv, attn_mask=mask)
+    g = att.heads(do, 4)
+    lib = cuda_ms(lambda: torch.autograd.grad(out, qkv, g,
+                                              retain_graph=True), 5)
+    del out
+    b = bound(att.attention_bwd_flops(B, Tq, Tk, 80),
+              att.attention_bwd_bytes(B, Tq, Tk, 80, 4))
+    log(f"attention_bwd B={B} {part} Tq={Tq} Tk={Tk} f32: kernel {ms:.4f} "
+        f"ms, plain {plain:.4f} ms, SDPA backward {lib:.4f} ms, bound "
+        f"{b[0]:.4f} ms ({b[1]})")
+    return {"kernel": "attention_bwd", "B": B, "Tq": Tq, "Tk": Tk,
+            "part": part, "dtype": "float32", "per_step": per_step,
+            "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b[0],
+            "bound_by": b[1]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -941,12 +1290,14 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
+    # ---- the flagship (conf/dmt.conf): 1+1 stacks, the fused block ----
+    t_flag = time.perf_counter()
     cfg = DMTConfig.from_ini(CONF)
-    fwd = serve_phase(cfg, dev)
+    fwd, serve = serve_phase(cfg, dev)
     torch.cuda.empty_cache()
     card_vs_cpu_step(cfg, dev)
     torch.cuda.empty_cache()
-    train = train_phase(cfg, dev)
+    train = train_phase(cfg, dev, EXPECTED_PER_STEP["dmt"])
     counts = train["counts"]
     fwd_shapes, fwd_err, bwd = block_train_phase(train["state"]["params"],
                                                  counts, dev)
@@ -959,15 +1310,50 @@ def main() -> int:
     seg, col = segsum_phase(cfg, train["trainer"], train["state"],
                             train["batches"][0], counts, dev)
     rows = update_phase(train["state"], col, counts, dev)
+    step_ms, eps = train["step_ms"], train["examples_per_s"]
+    p50 = serve["p50"]
+    del train, col, serve
+    torch.cuda.empty_cache()
+    t_flag = time.perf_counter() - t_flag
+
+    # ---- conf/dmt_2block.conf: 2+2 stacks, the attention kernels ----
+    t_two = time.perf_counter()
+    cfg2 = DMTConfig.from_ini(CONF_2BLOCK)
+    serve2 = serve_path(cfg2, dev, {"attention_fwd": 12})
+    ev = eval_phase(cfg2, serve2["params"], dev)
+    del serve2["params"]
+    torch.cuda.empty_cache()
+    card_vs_cpu_step(cfg2, dev)
+    torch.cuda.empty_cache()
+    train2 = train_phase(cfg2, dev, EXPECTED_PER_STEP["dmt_2block"])
+    del train2["trainer"], train2["state"], train2["batches"]
+    torch.cuda.empty_cache()
+    att_counts = {k: serve2["counts"][k] + ev["counts"][k]
+                  + train2["counts"][k]
+                  for k in ("attention_fwd", "attention_bwd")}
+    att_fwd, att_bwd = attention_phase(att_counts, dev)
+    att_fwd["launches_by_path"] = {
+        "serve": serve2["counts"]["attention_fwd"],
+        "eval": ev["counts"]["attention_fwd"],
+        "train": train2["counts"]["attention_fwd"]}
+    t_two = time.perf_counter() - t_two
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip().splitlines()[0]
-    log(f"training step {train['step_ms']:.3f} ms, "
-        f"{train['examples_per_s']:.1f} examples/s at batch {TRAIN_BATCH}")
+    log(f"dmt: request p50 {p50:.3f} ms; training step "
+        f"{step_ms:.3f} ms, {eps:.1f} examples/s at batch {TRAIN_BATCH}; "
+        f"wall {t_flag:.1f}s")
+    log(f"dmt_2block: request p50 {serve2['p50']:.3f} ms, p90 "
+        f"{serve2['p90']:.3f} ms; eval {ev['ms_per_batch']:.3f} ms per "
+        f"batch of {ev['batch']}, {ev['examples_per_s']:.1f} examples/s; "
+        f"training step {train2['step_ms']:.3f} ms, "
+        f"{train2['examples_per_s']:.1f} examples/s at batch {TRAIN_BATCH}; "
+        f"wall {t_two:.1f}s")
     print(smi)
-    print(json.dumps({"kernels": [fwd, bwd, seg] + rows}))
+    print(json.dumps({"kernels": [fwd, bwd, seg] + rows
+                      + [att_fwd, att_bwd]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,9 +5,10 @@ trunk (pooled features -> stacked MMoE -> click and order towers),
 ``MMoETransformer`` adds the behavior-sequence interest states to its
 input, and ``MMoETransformerUnbias`` adds the bias net.  ``apply`` returns
 the relevance logits ``(click_logit, order_logit)`` and never runs the bias
-net, as the reference's ``is_predict=True`` does; with ``train=True`` the
-unbias model returns ``((click_logit, order_logit), bias_logit)`` with
-dropout on, its randomness drawn from ``gen``.
+net, as the reference's ``is_predict=True`` does; with ``train=True`` (or
+``is_predict=False``, the eval step) the unbias model returns
+``((click_logit, order_logit), bias_logit)``, in training with dropout on,
+its randomness drawn from ``gen``.
 
 Params are plain nested dicts with the reference's tree (logical
 ``[R, D]`` tables), so ``convert.py`` copies a JAX init leaf by leaf.
@@ -102,8 +103,8 @@ class MMoETransformer(MMoE):
 
 
 class MMoETransformerUnbias(MMoETransformer):
-    """Full DMT: MMoE transformer plus the bias net, which only training
-    runs; serving drops the bias head."""
+    """Full DMT: MMoE transformer plus the bias net, which training and
+    the eval step run; serving drops the bias head."""
 
     name = "mmoe_transformer_unbias"
 
@@ -113,14 +114,19 @@ class MMoETransformerUnbias(MMoETransformer):
         return params
 
     def apply(self, params: Params, batch: dict, *, train: bool = False,
-              gen: Optional[torch.Generator] = None):
-        """Eval: the relevance logits.  ``train=True``:
-        ``((click_logit, order_logit), bias_logit)``, each [B, 1] float32."""
+              gen: Optional[torch.Generator] = None,
+              is_predict: Optional[bool] = None):
+        """``is_predict`` (default: not ``train``, the Scorer's case): the
+        relevance logits.  Otherwise ``((click_logit, order_logit),
+        bias_logit)``, each [B, 1] float32, with dropout where ``train``
+        (the eval step asks for this with ``train=False``)."""
         rel = super().apply(params, batch, train=train, gen=gen)
-        if not train:
+        if is_predict is None:
+            is_predict = not train
+        if is_predict:
             return rel
         bias = bias_net_apply(params["bias_net"], batch, self.cfg,
-                              train=True, gen=gen, engine=self.engine)
+                              train=train, gen=gen, engine=self.engine)
         return rel, bias.float()
 
 

@@ -9,10 +9,18 @@ Same contract as ``cikm2020_dmt_tpu/nn/transformer.py``:
   softmax;
 - inputs are scaled by sqrt(d_model), scores by 1/sqrt(d_head).
 
-``encode_decode`` runs the production shape (one encoder and one decoder
-block) through ``ops.block.fused_encode_decode``: the CUDA kernels (forward
-and backward) for tensors on the card, their plain PyTorch versions for
-tensors on the CPU.  Other block counts take the per-op path below.
+Which path launches which kernel (for tensors on the card; tensors on the
+CPU take each kernel's plain PyTorch version):
+
+- one encoder and one decoder block (the production shape):
+  ``ops.block.fused_encode_decode``, the fused block kernels
+  ``csrc/fused_block_fwd.cu`` and, in training, ``csrc/fused_block_bwd.cu``;
+- any other block count: the per-op path below.  Its ``mha_apply`` runs
+  the attention core through ``ops.attention.fused_attention`` (kernels
+  ``csrc/attention_fwd.cu`` and, in training, ``csrc/attention_bwd.cu``)
+  wherever dropout is off: inference, eval, and training at
+  ``transformer_dropout_rate = 0``.  With dropout active in training it
+  runs ``attention_core`` in plain PyTorch, as the reference does.
 
 In training, dropout (rate semantics) hits the encoder and decoder inputs
 and the attention probabilities: the fused path draws one kernel seed per
@@ -29,7 +37,8 @@ import numpy as np
 import torch
 
 from ..core.config import TransformerConfig
-from ..ops.block import NEG_INF, fused_encode_decode
+from ..ops.attention import attention_probs, fused_attention, heads, merge
+from ..ops.block import fused_encode_decode
 from .layers import (Params, dense_apply, dense_init, dropout_rate,
                      glorot_uniform, layer_norm_apply, layer_norm_init)
 
@@ -62,40 +71,34 @@ def mha_init(gen: torch.Generator, d_model: int, dtype=torch.float32) -> Params:
 
 
 def attention_core(q, k, v, q_mask, k_mask, num_heads: int, *,
-                   dropout: float = 0.0, train: bool = False,
-                   gen: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Masked scaled-dot-product attention over projected q/k/v, with
-    probability dropout in training.
+                   dropout: float, gen: torch.Generator) -> torch.Tensor:
+    """Masked scaled-dot-product attention over projected q/k/v with
+    probability dropout: the core of training with dropout active.
 
     q: [B, Tq, D]; k, v: [B, Tk, D]; masks: [B, T] (1 = present).
-    Returns [B, Tq, D]."""
-    B, Tq, D = q.shape
-    Tk = k.shape[1]
-    dh = D // num_heads
-    qh = q.reshape(B, Tq, num_heads, dh).transpose(1, 2)
-    kh = k.reshape(B, Tk, num_heads, dh).transpose(1, 2)
-    vh = v.reshape(B, Tk, num_heads, dh).transpose(1, 2)
-    scores = torch.matmul(qh, kh.transpose(-1, -2)) / math.sqrt(dh)
-    scores = torch.where(k_mask[:, None, None, :] > 0, scores,
-                         torch.full((), NEG_INF, dtype=scores.dtype,
-                                    device=scores.device))
-    probs = torch.softmax(scores, dim=-1)
+    Returns [B, Tq, D].  The probabilities are the attention kernel's plain
+    version's (``ops.attention.attention_probs``), in the operands' type,
+    dropped out before ``P v``."""
+    probs = attention_probs(heads(q, num_heads), heads(k, num_heads), k_mask)
     probs = probs * q_mask[:, None, :, None].to(probs.dtype)
-    if train and dropout > 0.0 and gen is not None:
-        probs = dropout_rate(gen, probs, dropout)
-    out = torch.matmul(probs, vh)
-    return out.transpose(1, 2).reshape(B, Tq, D)
+    probs = dropout_rate(gen, probs, dropout)
+    return merge(probs @ heads(v, num_heads))
 
 
 def mha_apply(params: Params, queries, keys, values, q_mask, k_mask, *,
               num_heads: int, dropout: float = 0.0, train: bool = False,
               gen: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Projection -> attention -> residual -> LN."""
+    """Projection -> attention -> residual -> LN.  The attention core is
+    the kernel (``ops.attention.fused_attention``) unless dropout is on,
+    as in the reference (``nn/transformer.py`` ``_use_fused_kernel``)."""
     q = dense_apply(params["q"], queries)
     k = dense_apply(params["k"], keys)
     v = dense_apply(params["v"], values)
-    out = attention_core(q, k, v, q_mask, k_mask, num_heads,
-                         dropout=dropout, train=train, gen=gen)
+    if train and dropout > 0.0 and gen is not None:
+        out = attention_core(q, k, v, q_mask, k_mask, num_heads,
+                             dropout=dropout, gen=gen)
+    else:
+        out = fused_attention(q, k, v, q_mask, k_mask, num_heads)
     return layer_norm_apply(params["ln"], out + queries)
 
 

@@ -47,10 +47,10 @@ import math
 import torch
 
 from . import _build
+from .attention import attend, attend_bwd, rounding, wide
 
 KERNEL = "fused_block_fwd"
 BWD_KERNEL = "fused_block_bwd"
-NEG_INF = -(2.0 ** 32) + 1  # score of a masked key (the reference's pad)
 LN_EPS = 1e-8
 
 # dropout sites (the reference's ids); probabilities of head h use
@@ -145,14 +145,9 @@ def _masks(B, T, D, H, train, rate, seed, device):
 
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions: forward replay and explicit backward, mirroring
-# the TPU kernels' _ffln/_attend3 and _ffln_bwd/_attend3_bwd/_ln_bwd
+# the TPU kernels' _ffln/_attend3 and _ffln_bwd/_attend3_bwd/_ln_bwd (the
+# attention core is ops/attention.py's plain version)
 # ---------------------------------------------------------------------------
-
-
-def _rounding(dtype):
-    if dtype == torch.bfloat16:
-        return lambda t: t.to(torch.bfloat16).float()
-    return lambda t: t
 
 
 def _ln(x, gamma, beta):
@@ -175,57 +170,6 @@ def _ln_bwd(g, xhat, inv, gamma):
     return dx, _rows_sum(g * xhat), _rows_sum(g)
 
 
-def _heads(x, H):
-    B, T, D = x.shape
-    return x.reshape(B, T, H, D // H).transpose(1, 2)
-
-
-def _merge(x):
-    B, H, T, dh = x.shape
-    return x.transpose(1, 2).reshape(B, T, H * dh)
-
-
-def _probs(qh, kh, km, rnd):
-    scale = 1.0 / math.sqrt(qh.shape[-1])
-    s = (rnd(qh) @ rnd(kh).transpose(-1, -2)) * scale
-    s = torch.where(km[:, None, None, :] > 0, s,
-                    torch.full((), NEG_INF, device=s.device))
-    return torch.softmax(s, dim=-1)
-
-
-def _attend(q, k, v, km, qm, dmp, H, rnd):
-    p = _probs(_heads(q, H), _heads(k, H), km, rnd)
-    if qm is not None:
-        p = p * qm[:, None, :, None]
-    if dmp is not None:
-        p = p * dmp
-    return _merge(rnd(p) @ rnd(_heads(v, H)))
-
-
-def _attend_bwd(gc, q, k, v, km, qm, dmp, H, rnd):
-    qh, kh, vh, gh = (_heads(t, H) for t in (q, k, v, gc))
-    scale = 1.0 / math.sqrt(qh.shape[-1])
-    p0 = _probs(qh, kh, km, rnd)
-    pd = p0 if qm is None else p0 * qm[:, None, :, None]
-    if dmp is not None:
-        pd = pd * dmp
-    dv = rnd(pd).transpose(-1, -2) @ rnd(gh)
-    dp = rnd(gh) @ rnd(vh).transpose(-1, -2)
-    if dmp is not None:
-        dp = dp * dmp
-    if qm is not None:
-        dp = dp * qm[:, None, :, None]
-    ds = p0 * (dp - (dp * p0).sum(-1, keepdim=True))
-    # a masked key's score is a constant: no gradient reaches it (this
-    # matters only on len-0 rows, where the softmax is uniform; the TPU
-    # kernel lets it through, the reference's jnp path does not)
-    ds = torch.where(km[:, None, None, :] > 0, ds,
-                     torch.zeros((), device=ds.device))
-    dq = (rnd(ds) @ rnd(kh)) * scale
-    dk = (rnd(ds).transpose(-1, -2) @ rnd(qh)) * scale
-    return _merge(dq), _merge(dk), _merge(dv)
-
-
 def _sub_fwd(x, kv, km, qm, dmp, w, H, rnd):
     """Attention + FF sub-block; x [B, Tq, D] queries and residual, kv
     [B, Tk, D] keys/values.  Returns (out, residuals)."""
@@ -234,7 +178,7 @@ def _sub_fwd(x, kv, km, qm, dmp, w, H, rnd):
     q = rnd(x) @ rnd(wqkv[:, :D]) + vecs[0]
     k = rnd(kv) @ rnd(wqkv[:, D:2 * D]) + vecs[1]
     v = rnd(kv) @ rnd(wqkv[:, 2 * D:]) + vecs[2]
-    ctx = _attend(q, k, v, km, qm, dmp, H, rnd)
+    ctx = attend(q, k, v, km, qm, dmp, H, rnd)
     h1, xhat1, inv1 = _ln(ctx + x, vecs[3], vecs[4])
     f = torch.relu(rnd(h1) @ rnd(w1) + b1)
     f2 = rnd(f) @ rnd(w2) + vecs[7]
@@ -260,7 +204,7 @@ def _sub_bwd(g, x, kv, res, km, qm, dmp, w, H, rnd):
     dh1 = dln2 + rnd(dfpre) @ rnd(w1).T
     dw1 = _tdot(h1, dfpre, rnd)
     da1, dg1, db1v = _ln_bwd(dh1, xhat1, inv1, vecs[3])
-    dq, dk, dv = _attend_bwd(da1, q, k, v, km, qm, dmp, H, rnd)
+    dq, dk, dv = attend_bwd(da1, q, k, v, km, qm, dmp, H, rnd)
     dwqkv = torch.cat([_tdot(x, dq, rnd), _tdot(kv, dk, rnd),
                        _tdot(kv, dv, rnd)], dim=1)
     dvecs = torch.stack([_rows_sum(dq), _rows_sum(dk), _rows_sum(dv),
@@ -271,18 +215,12 @@ def _sub_bwd(g, x, kv, res, km, qm, dmp, w, H, rnd):
     return dx, dkv, (dwqkv, dvecs, dw1, _rows_sum(dfpre), dw2)
 
 
-def _wide(t):
-    """float32, or float64 for float64 inputs (with float64 weights the
-    plain versions then run wholly in float64, a reference for rounding)."""
-    return t if t.dtype == torch.float64 else t.float()
-
-
 def _replay(ew, dw, enc_in, dec_in, seq_mask, H, masks):
-    rnd = _rounding(enc_in.dtype)
+    rnd = rounding(enc_in.dtype)
     dm_e, dm_d, dmp_e, dmp_d = masks
     km = seq_mask.float()
-    e0 = _wide(enc_in)
-    d0 = _wide(dec_in)
+    e0 = wide(enc_in)
+    d0 = wide(dec_in)
     if dm_e is not None:
         e0, d0 = e0 * dm_e, d0 * dm_d
     d0 = d0[:, None, :]
@@ -321,7 +259,7 @@ def fused_block_bwd_ref(ew, dw, *, enc_in, dec_in, seq_mask, g,
     masks = _masks(B, T, D, num_heads, train, rate, seed, enc_in.device)
     e0, d0, h2, eres, _, dres, km, rnd = _replay(
         ew, dw, enc_in, dec_in, seq_mask, num_heads, masks)
-    dd0, dh2, gdw = _sub_bwd(_wide(g)[:, None, :], d0, h2, dres, km, None,
+    dd0, dh2, gdw = _sub_bwd(wide(g)[:, None, :], d0, h2, dres, km, None,
                              masks[3], dw, num_heads, rnd)
     dx, dkv, gew = _sub_bwd(dh2, e0, e0, eres, km, km, masks[2], ew,
                             num_heads, rnd)

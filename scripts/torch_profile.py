@@ -8,6 +8,8 @@ GROUPS = (
     ("fused_block_bwd", ("fused_block_bwd", "reduce_partials")),
     ("sorted_segsum", ("segsum_",)),
     ("update_rows", ("update_rows_kernel",)),
+    ("attention_fwd", ("attention_fwd_kernel",)),
+    ("attention_bwd", ("attention_bwd_kernel",)),
     ("matmul", ("gemm", "gemv", "cutlass", "matmul", "dot_kernel")),
     ("sort", ("sort", "radix", "scan")),
     ("gather_scatter", ("index", "gather", "scatter", "embedding")),

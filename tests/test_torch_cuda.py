@@ -216,3 +216,96 @@ def test_segsum_with_skipped_slots_matches_plain_on_card(dtype, cuda_device):
     named = torch.zeros(U * p + 1, dtype=torch.bool, device=cuda_device)
     named[seg] = True
     assert (~named).any() and (got[~named] == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# The attention kernels (ops/attention.py)
+# ---------------------------------------------------------------------------
+
+# (Tq, Tk): the encoder's self-attention and the decoder's single query,
+# at the click/order sequence's T=50 and the cart's T=10
+ATTENTION_SHAPES = [(50, 50), (10, 10), (1, 50), (1, 10)]
+
+
+def _attention_case(Tq, Tk, dt, dev, B=301, seed=0):
+    """q, k, v, masks and a cotangent; key lengths cycle through 0..Tk and
+    the encoder's query mask is its key mask."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(B, t, 80, generator=gen, device=dev).to(dt)
+                   for t in (Tq, Tk, Tk, Tq))
+    lens = torch.arange(B, device=dev) % (Tk + 1)
+    km = (torch.arange(Tk, device=dev)[None] < lens[:, None]).float()
+    qm = km if Tq == Tk else torch.ones(B, Tq, device=dev)
+    return q, k, v, qm, km, do
+
+
+def _max_rel(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp(min=1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Tq,Tk", ATTENTION_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_matches_plain_on_card(Tq, Tk, dtype, cuda_device):
+    """The forward within 1e-4 in float32 (sums in another order); in
+    bfloat16 within ``chip_smoke.bf16_attention_fwd_check``'s per-element
+    limit of flipped roundings, with at most ``ATT_BF16_DIFF_SHARE`` of the
+    elements differing at all.  The backward within 1e-4 of each output's
+    largest |value| in float32, and in bfloat16 held against the float32
+    plain version within twice the bfloat16 plain version's own error."""
+    from chip_smoke import ATT_BF16_DIFF_SHARE, bf16_attention_fwd_check
+    from cikm2020_dmt_torch.ops import attention as att
+    dt = getattr(torch, dtype)
+    q, k, v, qm, km, do = _attention_case(Tq, Tk, dt, cuda_device)
+    got = att.fused_attention(q, k, v, qm, km, 4)
+    want = att.fused_attention_ref(q, k, v, qm, km, 4)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and torch.isfinite(got.float()).all()
+    if dt == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-4
+    else:
+        ratio, share = bf16_attention_fwd_check(got, want, q, k, v, qm, km)
+        assert ratio <= 1.0 and share <= ATT_BF16_DIFF_SHARE, (ratio, share)
+    gb = att.fused_attention_bwd(q, k, v, qm, km, do, 4)
+    rb = att.fused_attention_bwd_ref(q, k, v, qm, km, do, 4)
+    if dt == torch.float32:
+        tols = [1e-4] * 3
+    else:
+        r32 = att.fused_attention_bwd_ref(q.float(), k.float(), v.float(), qm,
+                                          km, do.float(), 4)
+        tols = [2 * _max_rel(b, c) + 1e-4 for b, c in zip(rb, r32)]
+        rb = r32
+    torch.cuda.synchronize()
+    for name, a, b, t in zip("qkv", gb, rb, tols):
+        assert a.dtype == dt and torch.isfinite(a.float()).all(), name
+        assert _max_rel(a, b) <= t, (name, _max_rel(a, b), t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_backward_is_deterministic_on_card(dtype, cuda_device):
+    """Each output element has one owner thread summing in a fixed order:
+    two launches give the same bits."""
+    from cikm2020_dmt_torch.ops import attention as att
+    q, k, v, qm, km, do = _attention_case(50, 50, getattr(torch, dtype),
+                                          cuda_device, B=517)
+    first = att.fused_attention_bwd(q, k, v, qm, km, do, 4)
+    second = att.fused_attention_bwd(q, k, v, qm, km, do, 4)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["T", "dtype", "heads"])
+def test_attention_kernels_raise_on_what_they_do_not_take(bad, cuda_device):
+    from cikm2020_dmt_torch.ops import attention as att
+    T = 65 if bad == "T" else 10
+    dt = torch.float16 if bad == "dtype" else torch.float32
+    H = 3 if bad == "heads" else 4
+    q, k, v, qm, km, do = _attention_case(T, T, dt, cuda_device, B=4)
+    with pytest.raises((ValueError, TypeError)):
+        att.fused_attention(q, k, v, qm, km, H)
+    with pytest.raises((ValueError, TypeError)):
+        att.fused_attention_bwd(q, k, v, qm, km, do, H)
