@@ -37,10 +37,14 @@ read just after.  Then every kernel is held against its plain PyTorch
 version on the card at the paths' shapes, and timed beside its bound and,
 where one PyTorch call computes the same function, that call.
 
-Every check raises on failure.  Before the last line it prints the card's
-name and power limit (``nvidia-smi``) and one JSON line ``{"kernels":
-[...]}`` (seven kernels); the last line is ``{"ok": true, "device":
-{...}}``.  Without a CUDA card it exits with code 2 and prints no result.
+Every check raises on failure.  The speed targets of the redesigned
+kernels (the row writes no slower than ``index_put_``; the attention
+backward against SDPA's backward and its time limits) are printed and
+recorded under ``targets``, not enforced.  Before the last line it prints
+the card's name and power limit (``nvidia-smi``) and one JSON line
+``{"kernels": [...]}`` (seven kernels); the last line is ``{"ok": true,
+"device": {...}}``.  Without a CUDA card it exits with code 2 and prints
+no result.
 """
 
 from __future__ import annotations
@@ -965,18 +969,19 @@ def update_phase(state, col, counts, dev):
         plain = cuda_ms(lambda: ref(b, i, r), 20)
         lib = cuda_ms(lambda: flat.index_put_((iv,), rv), 20)
         n = int(k.sum())
-        bd = bound(0, sr.update_rows_bytes(n, 32, elem))
+        bd = bound(0, sr.update_rows_bytes(i.numel(), n, 32, elem))
         log(f"{name} {tuple(dst.shape)} {str(dst.dtype).split('.')[-1]}, "
             f"{i.numel()} ids ({n} written): exact; kernel {ms:.4f} ms, "
             f"plain {plain:.4f} ms, index_put_ {lib:.4f} ms, bound "
-            f"{bd[0]:.4f} ms ({bd[1]})")
+            f"{bd[0]:.4f} ms ({bd[1]}); kernel <= index_put_: {ms <= lib}")
         entries.append(_entry(
             name, "cikm2020_dmt_torch/csrc/" + src, replaces, counts[name],
             0.0, ms, plain, bd, lib,
             library_note="table[ids_valid] = rows_valid (index_put_), the "
                          "valid ids selected beforehand",
             shape={"table": list(dst.shape), "ids": i.numel(),
-                   "written": n}))
+                   "written": n},
+            targets={"vs_index_put": ms <= lib}))
         del a, b
     return entries
 
@@ -1224,7 +1229,29 @@ def attention_phase(counts: dict, dev) -> tuple[dict, dict]:
         by_unit=by_unit(bshapes, att.attention_bwd_flops,
                         att.attention_bwd_bytes,
                         (("training_step", TRAIN_BATCH),)))
+    bwd["targets"] = attention_bwd_targets(bshapes, bwd["ms"])
     return fwd, bwd
+
+
+# the attention backward's targets at B=2048, float32: no slower than SDPA's
+# backward at each shape, the encoder's (50, 50) within 0.30 ms, a training
+# step's 12 launches within 1.75 ms.  Reported, not enforced: a kernel that
+# misses them stays, with its numbers
+ATT_BWD_T50_MS = 0.30
+ATT_BWD_STEP_MS = 1.75
+
+
+def attention_bwd_targets(shapes, step_ms) -> dict:
+    out = {f"{s['Tq']}x{s['Tk']}_vs_sdpa": s["ms"] <= s["library_ms"]
+           for s in shapes if s["B"] == TRAIN_BATCH}
+    t50 = next(s["ms"] for s in shapes
+               if s["B"] == TRAIN_BATCH and s["Tq"] == s["Tk"] == 50)
+    out["50x50_within_ms"] = t50 <= ATT_BWD_T50_MS
+    out["step_within_ms"] = step_ms <= ATT_BWD_STEP_MS
+    log(f"attention_bwd targets at B={TRAIN_BATCH} f32: {json.dumps(out)} "
+        f"((50, 50) {t50:.4f} ms, limit {ATT_BWD_T50_MS}; step "
+        f"{step_ms:.4f} ms, limit {ATT_BWD_STEP_MS})")
+    return out
 
 
 def _time_attention_fwd(att, sdpa, B, Tq, Tk, part, per_step, q, k, v, qm,

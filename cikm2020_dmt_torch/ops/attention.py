@@ -24,7 +24,7 @@ plain PyTorch versions ``fused_attention_ref`` and
 replace the TPU kernels of ``cikm2020_dmt_tpu/ops/attention.py``:
 ``_attention_fwd_kernel`` (via ``_pallas_call_fwd``) and
 ``_attention_bwd_kernel`` (via ``_pallas_call_bwd``).  They take
-1 <= Tq, Tk <= ``MAX_T``.
+1 <= Tq, Tk <= ``MAX_T`` and heads of at most ``MAX_DH`` columns.
 
 Compute types follow the TPU kernel: products take their operands in the
 input type (float32 or bfloat16), every sum and the softmax run in
@@ -50,7 +50,8 @@ from . import _build
 KERNEL = "attention_fwd"
 BWD_KERNEL = "attention_bwd"
 NEG_INF = -(2.0 ** 32) + 1  # score of a masked key (the reference's pad)
-MAX_T = 64  # the kernels spread the keys of a row over two 32-lane slots
+MAX_T = 64  # the kernels hold at most 64 keys of a row in registers
+MAX_DH = 64  # the backward's widest compile-time head width
 
 
 # ---------------------------------------------------------------------------
@@ -185,6 +186,9 @@ def _check(name, q, k, v, q_mask, k_mask, num_heads, do=None):
                          f"1..{MAX_T}")
     if num_heads < 1 or D % num_heads:
         raise ValueError(f"{name}: D={D}, num_heads={num_heads}")
+    if D // num_heads > MAX_DH:
+        raise ValueError(f"{name}: head width {D // num_heads}; the kernels "
+                         f"take at most {MAX_DH}")
     return B, Tq, Tk, D
 
 
@@ -214,9 +218,9 @@ def _fwd_kernel(q, k, v, q_mask, k_mask, num_heads):
 
 def fused_attention_bwd(q, k, v, q_mask, k_mask, do, num_heads: int):
     """The backward: ``fused_attention_bwd_ref``'s contract.  CPU tensors
-    take the plain version; CUDA tensors launch the kernel (one block per
-    example and head, each writing only its head's columns of dq, dk and
-    dv, so runs are deterministic); anything else raises."""
+    take the plain version; CUDA tensors launch the kernel (each output
+    element has one owner thread summing in a fixed order, so runs are
+    deterministic); anything else raises."""
     if q.device.type == "cpu":
         return fused_attention_bwd_ref(q, k, v, q_mask, k_mask, do,
                                        num_heads)

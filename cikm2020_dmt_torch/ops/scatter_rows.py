@@ -229,6 +229,8 @@ def segsum_bytes(N: int, D: int, elem: int, num_out: int) -> int:
     return N * D * elem + 2 * 8 * N + 4 * num_out * D
 
 
-def update_rows_bytes(n: int, D: int, elem: int) -> int:
-    """The written rows read once and written once, the int64 ids read."""
-    return 2 * n * D * elem + 8 * n
+def update_rows_bytes(n_ids: int, n_written: int, D: int, elem: int) -> int:
+    """Every int64 id handed in read once (the kernel reads each to drop
+    the out-of-range ones), the ``n_written`` rows in range read once and
+    written once."""
+    return 8 * n_ids + 2 * n_written * D * elem

@@ -298,14 +298,96 @@ def test_attention_backward_is_deterministic_on_card(dtype, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bad", ["T", "dtype", "heads"])
+@pytest.mark.parametrize("bad", ["T", "dtype", "heads", "dh"])
 def test_attention_kernels_raise_on_what_they_do_not_take(bad, cuda_device):
+    """Keys or queries beyond 64, float16, heads that do not divide D, and
+    a head width beyond ``MAX_DH`` (D=80 in one head)."""
     from cikm2020_dmt_torch.ops import attention as att
     T = 65 if bad == "T" else 10
     dt = torch.float16 if bad == "dtype" else torch.float32
-    H = 3 if bad == "heads" else 4
+    H = {"heads": 3, "dh": 1}.get(bad, 4)
     q, k, v, qm, km, do = _attention_case(T, T, dt, cuda_device, B=4)
     with pytest.raises((ValueError, TypeError)):
         att.fused_attention(q, k, v, qm, km, H)
     with pytest.raises((ValueError, TypeError)):
         att.fused_attention_bwd(q, k, v, qm, km, do, H)
+
+
+# ---------------------------------------------------------------------------
+# Every access width of the row write, every head width of the backward
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [1, 7, 32, 33, 80, "32-offset"])
+def test_update_rows_every_access_width_on_card(D, dtype, cuda_device):
+    """The kernel copies a row 16 bytes at a time when the row's bytes and
+    both base pointers allow, else 4 bytes, else one element: D in {1, 7,
+    32, 33, 80} runs each width for float32 and bfloat16, and "32-offset"
+    hands in rows that start 2 elements into their buffer (not 16-byte
+    aligned).  Exact against the plain versions, with ids past the end and
+    negative ids dropped."""
+    from cikm2020_dmt_torch.ops import scatter_rows as sr
+    dt = getattr(torch, dtype)
+    offset = D == "32-offset"
+    D = 32 if offset else D
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    R, n = 1000, 300
+    ids = torch.randperm(R, generator=gen, device=cuda_device)[:n]
+    ids[:20] = R + torch.arange(20, device=cuda_device)
+    ids[20:27] = -1 - torch.arange(7, device=cuda_device)
+
+    def rows_of(m):
+        buf = torch.randn(m * D + 2, generator=gen, device=cuda_device)
+        return (buf[2:] if offset else buf[:m * D]).to(dt).view(m, D)
+
+    table = torch.randn(R, D, generator=gen, device=cuda_device).to(dt)
+    rows = rows_of(n)
+    got = sr.update_rows(table.clone(), ids, rows)
+    want = sr.update_rows_ref(table.clone(), ids, rows)
+    mv = torch.randn(2, R, D, generator=gen, device=cuda_device).to(dt)
+    real = (ids >= 0) & (ids < R)
+    ids2 = torch.cat([torch.where(real, ids, 2 * R),
+                      torch.where(real, ids + R, -1)])
+    rows2 = rows_of(2 * n)
+    got3 = sr.update_rows_3d(mv.clone(), ids2, rows2)
+    want3 = sr.update_rows_3d_ref(mv.clone(), ids2, rows2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got3, want3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H", [10, 4, 2])
+@pytest.mark.parametrize("B", [1, 300, 517])
+def test_attention_backward_every_head_width_on_card(B, H, dtype,
+                                                     cuda_device):
+    """D=80 in 10, 4 or 2 heads (dh 8, 20, 40: three compile-time widths),
+    at the four (Tq, Tk) of the path and batch sizes that fill blocks
+    unevenly, key lengths cycling through 0..Tk (B=1 is a single row with
+    no present key).  Float32 within 1e-4 of each output's largest |value|;
+    bfloat16 against the float32 plain version within twice the bfloat16
+    plain version's own error; two launches give the same bits."""
+    from cikm2020_dmt_torch.ops import attention as att
+    dt = getattr(torch, dtype)
+    for Tq, Tk in ATTENTION_SHAPES:
+        q, k, v, qm, km, do = _attention_case(Tq, Tk, dt, cuda_device, B=B,
+                                              seed=B + H)
+        gb = att.fused_attention_bwd(q, k, v, qm, km, do, H)
+        again = att.fused_attention_bwd(q, k, v, qm, km, do, H)
+        rb = att.fused_attention_bwd_ref(q, k, v, qm, km, do, H)
+        if dt == torch.float32:
+            tols = [1e-4] * 3
+        else:
+            r32 = att.fused_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                              qm, km, do.float(), H)
+            tols = [2 * _max_rel(b, c) + 1e-4 for b, c in zip(rb, r32)]
+            rb = r32
+        torch.cuda.synchronize()
+        for name, a, a2, b, t in zip("qkv", gb, again, rb, tols):
+            where = (Tq, Tk, name)
+            assert a.dtype == dt and torch.isfinite(a.float()).all(), where
+            assert torch.equal(a, a2), where
+            assert _max_rel(a, b) <= t, (where, _max_rel(a, b), t)
