@@ -1,4 +1,4 @@
-// Masked multi-head attention forward, one CUDA block per (example, head).
+// Masked multi-head attention forward.
 //
 // Replaces the TPU kernel cikm2020_dmt_tpu/ops/attention.py
 // `_attention_fwd_kernel` (launched through `_pallas_call_fwd`, entry
@@ -21,14 +21,47 @@
 //
 // Bound: at the training shapes (B=2048, T=50, D=80) one launch does 1.64
 // GFLOP against 131 MB of q, k, v and out, so it is bound by memory (~39
-// us at 3.35 TB/s).  Design: the head's K and V slices ([Tk, dh], stride
-// dh + 1 so the lanes of a warp reading different keys hit distinct banks)
-// and Q slice sit in shared memory; one warp per query row, the keys of
-// the row spread over the lanes (two per lane, so Tk <= 64), max and sum
-// by warp shuffles; then lane d forms output column d.  Every element of
-// q, k, v is read from device memory once, out written once.  No tensor
-// cores: dh = 20 fills no mma tile; several examples per block with mma
-// tiles is the next step.
+// us at 3.35 TB/s); the FLOPs alone would take ~24 us on the float32 FMA
+// units, so tensor cores are not needed.  What held the first design back
+// (one block per example and head, a warp walking query rows one at a
+// time, 20 of 32 lanes busy in P v) was latency and idle lanes.
+//
+// Design.  The unit of work is one (example, head); a query row of a unit
+// is an item.  An item belongs to a group of L neighbouring lanes (L a
+// power of two): lane c of the group holds the scores of keys c, c + L,
+// c + 2L, ... in registers (at most KS of them), forms each from its copy
+// of the query row as four independent float4 sums (a dot product of dh
+// terms is a chain of dh / 4 FMAs), takes the row's max and sum by
+// shuffles over the group, scales by one reciprocal a row, rounds each
+// probability, and accumulates P v over its keys for every column of the
+// head (dh / 4 float4 accumulators); a butterfly over the group sums the
+// partial rows, and the group's lanes store the row's float4s between
+// them.  So every lane has independent work, no lane sits idle in P v,
+// and no sum runs over more than KS keys in one lane.  A block takes as
+// many units as give each of its groups an item, whole examples once it
+// takes more than one, and the last block fewer: any B.
+//
+// The instantiation is picked from Tq:
+// - Tq > 4 (the encoder's self-attention, each key row read by every query
+//   row): a block stages its units in shared memory first, 16-byte loads,
+//   several in flight a thread, and the key mask once an example.  KS =
+//   16 keys a lane, L = 1, 2 or 4 for Tk <= 16, 32, 64.  Rows of a unit
+//   sit at a stride whose quarter is odd, so the lanes of a group reading
+//   L consecutive keys, and groups reading consecutive query rows, hit
+//   distinct banks.  Registers are capped (six blocks an SM) at head
+//   widths up to 20: at (50, 50) a block holds one unit (12 KB), and
+//   latency is hidden by the blocks an SM holds.
+// - Tq <= 4 (the decoder's single query): each key row is read by one
+//   group only, so the groups read q, k and v straight from device memory
+//   (16-byte loads, no shared memory, no barrier); KS = 8, L up to 8.
+//
+// On an H100 the IEEE division of every probability by its row's sum was
+// the largest removable cost at (50, 50), hence one reciprocal a row; two
+// query rows an item sharing each key load, and reading k and v straight
+// from memory at Tq > 4, were each slower (PERF.md).
+//
+// Each output element is summed by one group in a fixed order, so two
+// launches give the same bits.
 
 #include <cfloat>
 #include <type_traits>
@@ -36,112 +69,254 @@
 #include <cuda_runtime.h>
 
 #include "block_common.cuh"
+#include "tiles.cuh"
 
 namespace {
 
-constexpr int kMaxT = 64;   // keys per row: two per lane
-constexpr int kWarps = 4;   // query rows in flight per block
+constexpr int kMaxT = 64;
+constexpr int kFwdThreads = 128;
+constexpr int kSmallTq = 4;       // Tq at or below: read straight from memory
+constexpr int kKeysWide = 16;     // key slots a lane, staged instantiation
+constexpr int kKeysNarrow = 8;    // key slots a lane, direct instantiation
+// staged blocks an SM at head widths up to 20 (caps registers at 85)
+constexpr int kMinBlocksWide = 6;
+constexpr int kSmemMax = 96 * 1024;
+constexpr int kLoadBatch = 8;
 
-inline size_t smem_floats(int Tq, int Tk, int dh, int warps) {
-  const size_t ld = static_cast<size_t>(dh) + 1;
-  return 2 * Tk * ld + Tq * ld + Tk + static_cast<size_t>(warps) * kMaxT;
+// A row width (a multiple of 4 floats) padded to an odd number of float4s.
+__host__ __device__ constexpr int pad_ld(int w) {
+  return (w / 4) % 2 ? w : w + 4;
+}
+__host__ __device__ constexpr int round4(int x) { return (x + 3) & ~3; }
+
+// floats of one staged unit: q [Tq], k [Tk], v [Tk] rows of stride LD
+__host__ __device__ inline int unit_floats(int Tq, int Tk, int LD) {
+  return (Tq + 2 * Tk) * LD;
 }
 
-template <typename TIn>
-__global__ void __launch_bounds__(kWarps * 32)
+template <int DH, int KS, bool STAGE, typename TIn>
+__global__ void __launch_bounds__(kFwdThreads,
+                                  STAGE && DH <= 20 ? kMinBlocksWide : 1)
     attention_fwd_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
                          const TIn* __restrict__ v,
                          const float* __restrict__ qm,
                          const float* __restrict__ km,
-                         TIn* __restrict__ out, int Tq, int Tk, int D, int H,
-                         float scale) {
+                         TIn* __restrict__ out, int n_units, int upb, int Tq,
+                         int Tk, int D, int H, float scale, int vec_io,
+                         int lshift) {
   constexpr bool BF16 = !std::is_same<TIn, float>::value;
-  extern __shared__ float smem[];
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
+  constexpr int C = DH / 4;        // float4s of a head's row
+  constexpr int LD = pad_ld(DH);   // staged row stride
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int t = threadIdx.x;
   const int dh = D / H;
-  const int ld = dh + 1;
-  const int warps = blockDim.x >> 5;
-  float* ks = smem;             // [Tk, ld]
-  float* vs = ks + Tk * ld;     // [Tk, ld]
-  float* qs = vs + Tk * ld;     // [Tq, ld]
-  float* kms = qs + Tq * ld;    // [Tk]
-  float* ps = kms + Tk;         // [warps, kMaxT] one probability row a warp
+  const bool vec = vec_io != 0;
+  const int unit0 = blockIdx.x * upb;
+  const int units = min(upb, n_units - unit0);
+  const int usize = unit_floats(Tq, Tk, LD);
+  const int Tk4 = round4(Tk);
+  const int ex0 = unit0 / H;
+  float* kms = smem + upb * usize;  // [examples of the block][Tk4]
 
-  const size_t kv0 = static_cast<size_t>(b) * Tk * D + h * dh;
-  const size_t q0 = static_cast<size_t>(b) * Tq * D + h * dh;
-  for (int i = threadIdx.x; i < Tk * dh; i += blockDim.x) {
-    const int j = i / dh;
-    const int d = i % dh;
-    ks[j * ld + d] = to_float(k[kv0 + static_cast<size_t>(j) * D + d]);
-    vs[j * ld + d] = to_float(v[kv0 + static_cast<size_t>(j) * D + d]);
-  }
-  for (int i = threadIdx.x; i < Tq * dh; i += blockDim.x) {
-    const int r = i / dh;
-    qs[r * ld + i % dh] =
-        to_float(q[q0 + static_cast<size_t>(r) * D + i % dh]);
-  }
-  for (int j = threadIdx.x; j < Tk; j += blockDim.x)
-    kms[j] = km[static_cast<size_t>(b) * Tk + j];
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  float* pw = ps + (threadIdx.x >> 5) * kMaxT;
-  for (int r = threadIdx.x >> 5; r < Tq; r += warps) {
-    const float* qr = qs + r * ld;
-    float s[2];
+  if constexpr (STAGE) {
+    const int rows = Tq + 2 * Tk;
+    const int per_unit = rows * C;
+    const int n_load = units * per_unit;
+    for (int i0 = t; i0 < n_load; i0 += kLoadBatch * kFwdThreads) {
+      float4 x[kLoadBatch];
+      float* dst[kLoadBatch];
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int j = lane + 32 * c;
-      s[c] = -FLT_MAX;
+      for (int e = 0; e < kLoadBatch; ++e) {
+        const int i = i0 + e * kFwdThreads;
+        dst[e] = nullptr;
+        if (i >= n_load) continue;
+        const int u = i / per_unit;
+        const int w = i - u * per_unit;
+        const int r = w / C;
+        const int cc = w - r * C;
+        const int unit = unit0 + u;
+        const int b = unit / H;
+        const int col = (unit - b * H) * dh + 4 * cc;
+        const TIn* src =
+            r < Tq ? q + (static_cast<size_t>(b) * Tq + r) * D
+            : r < Tq + Tk
+                ? k + (static_cast<size_t>(b) * Tk + r - Tq) * D
+                : v + (static_cast<size_t>(b) * Tk + r - Tq - Tk) * D;
+        dst[e] = smem + u * usize + r * LD + 4 * cc;
+        x[e] = load_cols(src + col, 4 * cc, dh, vec);
+      }
+#pragma unroll
+      for (int e = 0; e < kLoadBatch; ++e)
+        if (dst[e]) sts4(dst[e], x[e]);
+    }
+    const int n_ex = (unit0 + units - 1) / H - ex0 + 1;
+    for (int i = t; i < n_ex * Tk4; i += kFwdThreads) {
+      const int e = i / Tk4;
+      const int j = i - e * Tk4;
+      kms[i] = j < Tk ? __ldg(km + static_cast<size_t>(ex0 + e) * Tk + j)
+                      : 0.f;
+    }
+    __syncthreads();
+  }
+
+  const int L = 1 << lshift;
+  const int c = t & (L - 1);
+  const int g = t >> lshift;
+  const int groups = kFwdThreads >> lshift;
+  const int warp_g0 = (t & ~31) >> lshift;  // the warp's first group
+  const int n_items = units * Tq;
+  // a warp runs a round if one of its groups has an item: the shuffles
+  // below run on every lane of the warp
+  for (int base = 0; base + warp_g0 < n_items; base += groups) {
+    const int it = base + g;
+    const bool active = it < n_items;
+    const int itc = active ? it : n_items - 1;
+    const int u = itc / Tq;
+    const int r = itc - u * Tq;
+    const int unit = unit0 + u;
+    const int b = unit / H;
+    const int hcol = (unit - b * H) * dh;
+    const float* U = smem + u * usize;
+    const float* kmu = kms + (b - ex0) * Tk4;
+    const TIn* kg = k + static_cast<size_t>(b) * Tk * D + hcol;
+    const TIn* vg = v + static_cast<size_t>(b) * Tk * D + hcol;
+
+    float4 qx[C];
+#pragma unroll
+    for (int cc = 0; cc < C; ++cc)
+      qx[cc] = STAGE ? lds4(U + r * LD + 4 * cc)
+                     : load_cols(q + (static_cast<size_t>(b) * Tq + r) * D +
+                                     hcol + 4 * cc,
+                                 4 * cc, dh, vec);
+    float s[KS];
+    float m = -FLT_MAX;
+#pragma unroll
+    for (int i = 0; i < KS; ++i) {
+      const int j = c + (i << lshift);
+      s[i] = -FLT_MAX;
       if (j < Tk) {
-        const float* kj = ks + j * ld;
-        float acc = 0.f;
-        for (int d = 0; d < dh; ++d) acc = fmaf(qr[d], kj[d], acc);
-        s[c] = kms[j] > 0.f ? acc * scale : kNegInf;
+        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int cc = 0; cc < C; ++cc)
+          dot4x(qx[cc],
+                STAGE ? lds4(U + (Tq + j) * LD + 4 * cc)
+                      : load_cols(kg + static_cast<size_t>(j) * D + 4 * cc,
+                                  4 * cc, dh, vec),
+                acc);
+        const float kmj =
+            STAGE ? kmu[j] : __ldg(km + static_cast<size_t>(b) * Tk + j);
+        s[i] = kmj > 0.f ? sum4(acc) * scale : kNegInf;
+        m = fmaxf(m, s[i]);
       }
     }
-    const float m = warp_max(fmaxf(s[0], s[1]));
-    float e[2];
+    m = group_max(m, L);
     float sum = 0.f;
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      e[c] = lane + 32 * c < Tk ? expf(s[c] - m) : 0.f;
-      sum += e[c];
+    for (int i = 0; i < KS; ++i) {
+      s[i] = c + (i << lshift) < Tk ? expf(s[i] - m) : 0.f;
+      sum += s[i];
     }
-    sum = warp_sum(sum);
-    const float qmr = qm[static_cast<size_t>(b) * Tq + r];
+    // one division a row: the probabilities are e / sum as e * (1 / sum)
+    const float scl =
+        __ldg(qm + static_cast<size_t>(b) * Tq + r) / group_sum(sum, L);
+    float4 o[C];
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int j = lane + 32 * c;
-      if (j < Tk) pw[j] = rnd<BF16>(e[c] / sum * qmr);
+    for (int cc = 0; cc < C; ++cc) o[cc] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int i = 0; i < KS; ++i) {
+      const int j = c + (i << lshift);
+      if (j < Tk) {
+        const float p = rnd<BF16>(s[i] * scl);
+#pragma unroll
+        for (int cc = 0; cc < C; ++cc)
+          fma4(o[cc], p,
+               STAGE ? lds4(U + (Tq + Tk + j) * LD + 4 * cc)
+                     : load_cols(vg + static_cast<size_t>(j) * D + 4 * cc,
+                                 4 * cc, dh, vec));
+      }
     }
-    __syncwarp();
-    for (int d = lane; d < dh; d += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < Tk; ++j) acc = fmaf(pw[j], vs[j * ld + d], acc);
-      store(out + q0 + static_cast<size_t>(r) * D + d, acc);
+    group_sum4(o, L);
+    if (active) {
+      TIn* orow = out + (static_cast<size_t>(b) * Tq + r) * D + hcol;
+#pragma unroll
+      for (int cc = 0; cc < C; ++cc)
+        if ((cc & (L - 1)) == c) store_cols(orow + 4 * cc, o[cc], 4 * cc, dh,
+                                            vec);
     }
-    __syncwarp();
   }
 }
 
-template <typename TIn>
+template <int DH, bool WIDE, typename TIn>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* qm, const void* km, void* out, int B, int Tq,
-                   int Tk, int D, int H, float scale, cudaStream_t stream) {
-  const int warps = Tq < kWarps ? Tq : kWarps;
-  const size_t bytes = smem_floats(Tq, Tk, D / H, warps) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_fwd_kernel<TIn>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  attention_fwd_kernel<TIn><<<B * H, warps * 32, bytes, stream>>>(
-      static_cast<const TIn*>(q), static_cast<const TIn*>(k),
-      static_cast<const TIn*>(v), static_cast<const float*>(qm),
-      static_cast<const float*>(km), static_cast<TIn*>(out), Tq, Tk, D, H,
-      scale);
+                   int Tk, int D, int H, float scale, int vec_io,
+                   cudaStream_t stream) {
+  constexpr int KS = WIDE ? kKeysWide : kKeysNarrow;
+  constexpr int LD = pad_ld(DH);
+  int lshift = 0;
+  while ((KS << lshift) < Tk) ++lshift;
+  const int groups = kFwdThreads >> lshift;
+  const int n_units = B * H;
+  // units that give every group an item; past one example, whole examples,
+  // so that a block reads whole rows
+  int upb = (groups + Tq - 1) / Tq;
+  if (upb > H) upb = (upb + H - 1) / H * H;
+  size_t bytes = 0;
+  if constexpr (WIDE) {
+    const size_t usize =
+        static_cast<size_t>(unit_floats(Tq, Tk, LD)) * sizeof(float);
+    const size_t mbytes = static_cast<size_t>(round4(Tk)) * sizeof(float);
+    const int fit = static_cast<int>((kSmemMax - 2 * mbytes) / usize);
+    upb = upb > fit ? (fit < 1 ? 1 : fit) : upb;
+    upb = upb > n_units ? n_units : upb;
+    bytes = upb * usize + (upb / H + 2) * mbytes;
+    if (bytes > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          attention_fwd_kernel<DH, KS, true, TIn>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(bytes));
+      if (err != cudaSuccess) return err;
+    }
+  } else {
+    upb = upb > n_units ? n_units : upb;
+  }
+  const int blocks = (n_units + upb - 1) / upb;
+  attention_fwd_kernel<DH, KS, WIDE, TIn>
+      <<<blocks, kFwdThreads, bytes, stream>>>(
+          static_cast<const TIn*>(q), static_cast<const TIn*>(k),
+          static_cast<const TIn*>(v), static_cast<const float*>(qm),
+          static_cast<const float*>(km), static_cast<TIn*>(out), n_units,
+          upb, Tq, Tk, D, H, scale, vec_io, lshift);
   return cudaGetLastError();
+}
+
+template <typename TIn>
+cudaError_t launch_dh(const void* q, const void* k, const void* v,
+                      const void* qm, const void* km, void* out, int B,
+                      int Tq, int Tk, int D, int H, float scale,
+                      cudaStream_t s) {
+  const int dh = D / H;
+  constexpr int kElem = static_cast<int>(sizeof(TIn));
+  const auto al = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % (4 * kElem) == 0;
+  };
+  const int vi = dh % 4 == 0 && D % 4 == 0 && al(q) && al(k) && al(v) &&
+                 al(out);
+#define ATT_FWD_LAUNCH(W)                                                 \
+  return Tq > kSmallTq                                                   \
+             ? launch<W, true, TIn>(q, k, v, qm, km, out, B, Tq, Tk, D, H, \
+                                    scale, vi, s)                         \
+             : launch<W, false, TIn>(q, k, v, qm, km, out, B, Tq, Tk, D, \
+                                     H, scale, vi, s)
+  if (dh <= 8) ATT_FWD_LAUNCH(8);
+  if (dh <= 16) ATT_FWD_LAUNCH(16);
+  if (dh <= 20) ATT_FWD_LAUNCH(20);
+  if (dh <= 32) ATT_FWD_LAUNCH(32);
+  if (dh <= 40) ATT_FWD_LAUNCH(40);
+  if (dh <= 64) ATT_FWD_LAUNCH(64);
+#undef ATT_FWD_LAUNCH
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -150,7 +325,7 @@ extern "C" {
 
 // Launches the kernel on `stream` (of the caller's current device); returns
 // the CUDA error code of the launch, 0 on success.  Does not synchronise.
-// The caller checks 1 <= Tq, Tk <= 64 and D % H == 0.
+// The caller checks 1 <= Tq, Tk <= 64, D % H == 0 and D / H <= 64.
 int attention_fwd(const void* q, const void* k, const void* v,
                   const void* q_mask, const void* k_mask, void* out, int B,
                   int Tq, int Tk, int D, int H, float scale, int is_bf16,
@@ -160,10 +335,10 @@ int attention_fwd(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(q, k, v, q_mask, k_mask, out, B, Tq, Tk,
-                                      D, H, scale, s)
-              : launch<float>(q, k, v, q_mask, k_mask, out, B, Tq, Tk, D, H,
-                              scale, s);
+      is_bf16 ? launch_dh<__nv_bfloat16>(q, k, v, q_mask, k_mask, out, B, Tq,
+                                         Tk, D, H, scale, s)
+              : launch_dh<float>(q, k, v, q_mask, k_mask, out, B, Tq, Tk, D,
+                                 H, scale, s);
   return static_cast<int>(err);
 }
 

@@ -42,6 +42,7 @@ gradients are float32, summed over the batch.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -281,11 +282,21 @@ _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # keep_thr drop_scale | stream
 _FWD_ARGS = tuple([_PTR] * 14 + [_I32] * 5
                   + [_F32, _I32, _PTR, _I32, _I32, _F32, _PTR])
-# enc dec mask, 10 weights, 6 transposed weights, g, d_enc d_dec, partial,
-# gw | B T D F H | scale is_bf16 | seed train keep_thr drop_scale | blocks |
-# stream
-_BWD_ARGS = tuple([_PTR] * 24 + [_I32] * 5
+# enc dec mask, 10 weights, g, d_enc d_dec, workspace, gw | B T D F H |
+# scale is_bf16 | seed train keep_thr drop_scale | sms | stream
+_BWD_ARGS = tuple([_PTR] * 18 + [_I32] * 5
                   + [_F32, _I32, _PTR, _I32, _I32, _F32, _I32, _PTR])
+# the widths the backward kernel is built for (the model's), and its
+# longest sequence (an example's activations fill an SM's shared memory)
+BWD_D, BWD_F, BWD_HEADS, BWD_MAX_T = 80, 320, 4, 50
+
+
+@functools.cache
+def _bwd_workspace_fn():
+    fn = _build.load(BWD_KERNEL).fused_block_bwd_workspace
+    fn.argtypes = [_I32, _I32, _I32]
+    fn.restype = ctypes.c_longlong
+    return fn
 
 
 def _check(name, enc_in, dec_in, seq_mask, num_heads, ew, dw, seed, train,
@@ -361,10 +372,12 @@ def _fwd_kernel(ew, dw, enc_in, dec_in, seq_mask, num_heads, train, rate,
 def fused_block_bwd(ew, dw, *, enc_in, dec_in, seq_mask, g, num_heads: int,
                     train: bool = False, rate: float = 0.0, seed=None):
     """The block's backward: ``fused_block_bwd_ref``'s contract.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel (a
-    persistent grid of one block per SM, each writing its own partial
-    weight grads, then a reduction over the blocks in a fixed order, so
-    runs are deterministic); anything else raises."""
+    tensors take the plain version; CUDA tensors launch the kernel (three
+    CUDA kernels: the weights packed into tensor-core fragments, the
+    per-example backward, and the weight grads summed over all rows in
+    fixed chunks and a fixed order, so runs are deterministic); anything
+    else raises, including widths other than the model's (D=80, F=320, 4
+    heads) and sequences longer than ``BWD_MAX_T``."""
     if enc_in.device.type == "cpu":
         return fused_block_bwd_ref(ew, dw, enc_in=enc_in, dec_in=dec_in,
                                    seq_mask=seq_mask, g=g,
@@ -375,6 +388,10 @@ def fused_block_bwd(ew, dw, *, enc_in, dec_in, seq_mask, g, num_heads: int,
                          f"{enc_in.device}")
     B, T, D, F = _check("fused_block_bwd", enc_in, dec_in, seq_mask,
                         num_heads, ew, dw, seed, train, rate)
+    if (D, F, num_heads) != (BWD_D, BWD_F, BWD_HEADS) or T > BWD_MAX_T:
+        raise ValueError(f"fused_block_bwd: D={D}, F={F}, num_heads="
+                         f"{num_heads}, T={T}; the kernel takes D={BWD_D}, "
+                         f"F={BWD_F}, {BWD_HEADS} heads, T <= {BWD_MAX_T}")
     if g.shape != (B, D) or g.device != enc_in.device:
         raise ValueError(f"fused_block_bwd: g {tuple(g.shape)} on "
                          f"{g.device}, want ({B}, {D})")
@@ -388,28 +405,23 @@ def fused_block_bwd(ew, dw, *, enc_in, dec_in, seq_mask, g, num_heads: int,
     sizes = [D * 3 * D, 8 * D, D * F, F, F * D]
     nw = 2 * sum(sizes)
     gw = torch.empty((nw,), dtype=torch.float32, device=dev)
-    blocks = min(B, torch.cuda.get_device_properties(dev)
-                 .multi_processor_count)
-    partial = torch.empty((max(blocks, 1), nw), dtype=torch.float32,
-                          device=dev)
-    # wqkv, w1 and w2 transposed: the kernel's products with W^T read them
-    # row by row
-    wt = [w[i].t().contiguous() for w in (ew, dw) for i in (0, 2, 4)]
     if B == 0:
         gw.zero_()
     else:
-        launch = _build.bind(BWD_KERNEL, _BWD_ARGS)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         with torch.cuda.device(dev):
+            work = torch.empty((int(_bwd_workspace_fn()(B, T, sms)),),
+                               dtype=torch.float32, device=dev)
+            launch = _build.bind(BWD_KERNEL, _BWD_ARGS)
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = launch(
                 enc.data_ptr(), dec.data_ptr(), mask.data_ptr(),
                 *(t.data_ptr() for t in ew), *(t.data_ptr() for t in dw),
-                *(t.data_ptr() for t in wt),
                 gg.data_ptr(), d_enc.data_ptr(), d_dec.data_ptr(),
-                partial.data_ptr(), gw.data_ptr(), B, T, D, F, num_heads,
+                work.data_ptr(), gw.data_ptr(), B, T, D, F, num_heads,
                 1.0 / math.sqrt(D // num_heads),
                 int(enc_in.dtype == torch.bfloat16),
-                *_drop_args(train, rate, seed), blocks, stream)
+                *_drop_args(train, rate, seed), sms, stream)
         _build.check(BWD_KERNEL, err, f"B={B} T={T} D={D} F={F}")
         fused_block_bwd.launches += 1
     shapes = [(D, 3 * D), (8, D), (D, F), (F,), (F, D)] * 2
@@ -502,3 +514,21 @@ def block_bwd_bytes(B: int, T: int, D: int, F: int, elem: int) -> int:
     written once (d_enc, d_dec, float32 weight grads)."""
     weights = 2 * 4 * (D * 3 * D + 8 * D + D * F + F + F * D)
     return (2 * elem * (B * T * D + 2 * B * D) + 4 * B * T + 2 * weights)
+
+
+# dense tensor-core peaks of one H100 SXM (NVIDIA data sheet, 700 W)
+PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
+
+
+def block_bwd_tc_bound_ms(B: int, T: int, D: int, F: int, dtype) -> float:
+    """Least ms of one backward launch's operations on the tensor cores:
+    float32 by the 3xTF32 split (three TF32 products for each, at 495
+    TFLOP/s), bfloat16 at 989 TFLOP/s.  Beside the float32 FMA bound
+    (``block_bwd_flops`` at 67 TFLOP/s) it says how far tensor cores could
+    take the kernel; it is not the kernel's bound, which counts the
+    function's float32 operations at their own rate."""
+    ops = block_bwd_flops(B, T, D, F)
+    if dtype == torch.bfloat16:
+        return ops / PEAK_BF16_FLOPS * 1e3
+    return 3 * ops / PEAK_TF32_FLOPS * 1e3

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 GROUPS = (
     ("fused_block_fwd", ("fused_block_fwd",)),
-    ("fused_block_bwd", ("fused_block_bwd", "reduce_partials")),
+    ("fused_block_bwd", ("block_bwd_kernel", "pack_kernel", "wgrad_kernel")),
     ("sorted_segsum", ("segsum_",)),
     ("update_rows", ("update_rows_kernel",)),
     ("attention_fwd", ("attention_fwd_kernel",)),

@@ -391,3 +391,120 @@ def test_attention_backward_every_head_width_on_card(B, H, dtype,
             assert a.dtype == dt and torch.isfinite(a.float()).all(), where
             assert torch.equal(a, a2), where
             assert _max_rel(a, b) <= t, (where, _max_rel(a, b), t)
+
+
+# ---------------------------------------------------------------------------
+# Edges of the redesigned attention forward and block backward tilings
+# ---------------------------------------------------------------------------
+
+# the four shapes of the path, a ragged one, and the largest the kernels take
+FWD_EDGE_SHAPES = ATTENTION_SHAPES + [(7, 33), (64, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H", [2, 4, 10])
+@pytest.mark.parametrize("B", [1, 300, 517, 2048])
+def test_attention_forward_tilings_on_card(B, H, dtype, cuda_device):
+    """D=80 in 2, 4 or 10 heads at every shape of the path plus (7, 33) and
+    (64, 64), key lengths cycling through 0..Tk (B=1 is a single row with
+    no present key), batch sizes that fill the blocks unevenly: float32
+    within 1e-4, bfloat16 within ``bf16_attention_fwd_check``'s limits."""
+    from chip_smoke import ATT_BF16_DIFF_SHARE, bf16_attention_fwd_check
+    from cikm2020_dmt_torch.ops import attention as att
+    dt = getattr(torch, dtype)
+    for Tq, Tk in FWD_EDGE_SHAPES:
+        q, k, v, qm, km, _ = _attention_case(Tq, Tk, dt, cuda_device, B=B,
+                                             seed=B + H)
+        got = att.fused_attention(q, k, v, qm, km, H)
+        want = att.fused_attention_ref(q, k, v, qm, km, H)
+        torch.cuda.synchronize()
+        where = (Tq, Tk)
+        assert got.dtype == dt and torch.isfinite(got.float()).all(), where
+        if dt == torch.float32:
+            assert float((got - want).abs().max()) <= 1e-4, where
+        else:
+            ratio, share = bf16_attention_fwd_check(got, want, q, k, v, qm,
+                                                    km, H)
+            assert ratio <= 1.0 and share <= ATT_BF16_DIFF_SHARE, (where,
+                                                                  ratio,
+                                                                  share)
+
+
+def _block_bwd_case(B, T_, dt, dev, rate, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = transformer_init(gen, TransformerConfig(maxlen_k=T_))
+    enc = torch.randn(B, T_, 80, generator=gen, device=dev).to(dt)
+    dec = torch.randn(B, 80, generator=gen, device=dev).to(dt)
+    lens = torch.arange(B, device=dev) % (T_ + 1)
+    mask = (torch.arange(T_, device=dev)[None] < lens[:, None]).float()
+    g = torch.randn(B, 80, generator=gen, device=dev).to(dt)
+    kw = dict(enc_in=enc, dec_in=dec, seq_mask=mask, num_heads=4,
+              train=rate > 0, rate=rate,
+              seed=torch.tensor([seed + 7], dtype=torch.int32, device=dev))
+    ew, dw = block.pack_weights(p["enc"][0]), block.pack_weights(p["dec"][0])
+    return ew, dw, g, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.1, 0.0])
+@pytest.mark.parametrize("T_", [1, 10, 50])
+@pytest.mark.parametrize("B", [1, 131, 133, 517])
+def test_block_backward_tilings_on_card(B, T_, rate, cuda_device):
+    """Batch sizes below and above the SM count that fill no tile evenly,
+    one to 50 keys (one, one and four 16-row tiles; lengths cycling through
+    0..T), dropout on and off: float32 within 1e-2 norm-wise of the plain
+    version per output, bfloat16 against the float32 plain version within
+    twice the bfloat16 plain version's own error (plus 1e-2), as
+    ``chip_smoke.block_train_phase`` holds them."""
+    for dt in (torch.float32, torch.bfloat16):
+        ew, dw, g, kw = _block_bwd_case(B, T_, dt, cuda_device, rate,
+                                        seed=B + T_)
+        got = block.fused_block_bwd(ew, dw, g=g, **kw)
+        flat_got = (got[0], got[1]) + tuple(got[2])
+        kw32 = dict(kw, enc_in=kw["enc_in"].float(),
+                    dec_in=kw["dec_in"].float())
+        r32 = block.fused_block_bwd_ref(ew, dw, g=g.float(), **kw32)
+        flat_32 = (r32[0], r32[1]) + tuple(r32[2])
+        if dt == torch.float32:
+            tols = [1e-2] * len(flat_32)
+        else:
+            rb = block.fused_block_bwd_ref(ew, dw, g=g, **kw)
+            tols = [2 * _norm_err(b, c) + 1e-2
+                    for b, c in zip((rb[0], rb[1]) + tuple(rb[2]), flat_32)]
+        torch.cuda.synchronize()
+        for i, (a, b, tol) in enumerate(zip(flat_got, flat_32, tols)):
+            where = (str(dt), i)
+            assert a.shape == b.shape and torch.isfinite(a.float()).all(), \
+                where
+            assert _norm_err(a, b) <= tol, (where, _norm_err(a, b), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T_", [1, 10, 50])
+def test_block_backward_repeats_bit_for_bit_on_card(T_, dtype, cuda_device):
+    """At the training batch: the weight grads are summed over fixed row
+    chunks in a fixed order (no sum depends on which block finishes
+    first), so two launches give the same bits in every output."""
+    ew, dw, g, kw = _block_bwd_case(2048, T_, getattr(torch, dtype),
+                                    cuda_device, 0.1, seed=T_)
+    first = block.fused_block_bwd(ew, dw, g=g, **kw)
+    second = block.fused_block_bwd(ew, dw, g=g, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip((first[0], first[1]) + tuple(first[2]),
+                    (second[0], second[1]) + tuple(second[2])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["T", "heads"])
+def test_block_backward_raises_beyond_its_widths(bad, cuda_device):
+    """The kernel is built for the model's widths: more than 50 keys, or
+    other than 4 heads, raise before any launch."""
+    ew, dw, g, kw = _block_bwd_case(4, 51 if bad == "T" else 10,
+                                    torch.float32, cuda_device, 0.0)
+    if bad == "heads":
+        kw["num_heads"] = 2
+    with pytest.raises(ValueError):
+        block.fused_block_bwd(ew, dw, g=g, **kw)

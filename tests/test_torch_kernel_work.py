@@ -81,3 +81,22 @@ def test_backward_plain_version_is_the_gradient(Tq, Tk, H):
     for a, b in zip(got, want):
         assert a.dtype == torch.float64
         torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("T,fma_ms,tf32_ms,bf16_ms", [
+    (50, 0.8483, 0.3445, 0.0575),
+    (10, 0.1664, 0.0676, 0.0113),
+])
+def test_block_bwd_tensor_core_bound(T, fma_ms, tf32_ms, bf16_ms):
+    """The block backward's bounds at B=2048: its operations over the
+    float32 FMA peak (67 TFLOP/s), three times its operations over the TF32
+    tensor-core peak (the 3xTF32 split, 495 TFLOP/s), and its operations
+    over the bfloat16 peak (989 TFLOP/s)."""
+    from cikm2020_dmt_torch.ops import block
+    ops = block.block_bwd_flops(2048, T, 80, 320)
+    assert round(ops / 67e12 * 1e3, 4) == fma_ms
+    got = block.block_bwd_tc_bound_ms(2048, T, 80, 320, torch.float32)
+    assert round(got, 4) == tf32_ms
+    assert round(block.block_bwd_tc_bound_ms(2048, T, 80, 320,
+                                             torch.bfloat16), 4) == bf16_ms
+    assert got == pytest.approx(3 * ops / 495e12 * 1e3)
