@@ -35,7 +35,21 @@ and its attention kernels):
 Each path is driven with every launch count set to 0 just before it and
 read just after.  Then every kernel is held against its plain PyTorch
 version on the card at the paths' shapes, and timed beside its bound and,
-where one PyTorch call computes the same function, that call.
+where one PyTorch call computes the same function, that call (and beside
+its time in PR 5, ``*_PR5_MS``).  Besides the paths' shapes:
+
+- the FF pre-activations that the block forward kernel formed must equal,
+  bit for bit, those that the backward kernel's replay formed (T = 1, 10,
+  50, 55, 128, float32 and bfloat16, dropout 0.1; ``check_replay``);
+- the block kernels at other widths (``WIDTH_CASES``: a head of 12
+  columns, two heads of 32 past 50 keys, T=200 spilling into the
+  workspace, T=300 past the encoder attention's register tilings) and the
+  attention kernels past 64 keys and with heads of 72 columns
+  (``ATT_WIDTH_CASES``), each against its plain version with the main
+  path's tolerances.
+
+The block kernels are built for each width the run uses; every library is
+built in one parallel batch first (``build_specs``).
 
 Every check raises on failure.  The speed targets of the redesigned
 kernels (the row writes no slower than ``index_put_``; the attention
@@ -338,13 +352,17 @@ def serve_phase(cfg, dev) -> tuple[dict, dict]:
             flops = block.block_flops(CANDIDATES, T, 80, 320)
             nbytes = block.block_bytes(CANDIDATES, T, 80, 320, 4)
             b_ms, by = bound(flops, nbytes)
+            tc = block.block_tc_bound_ms(flops, dtype)
             shapes.append({"B": CANDIDATES, "T": T, "dtype": dname,
                            "per_request": 2 if T == 50 else 1, "ms": ms,
                            "plain_ms": plain, "bound_ms": b_ms,
-                           "bound_by": by, "flop": flops, "bytes": nbytes})
+                           "bound_by": by, "tc_bound_ms": tc, "flop": flops,
+                           "bytes": nbytes})
             log(f"fused_block_fwd B={CANDIDATES} T={T} f32: kernel {ms:.4f} "
-                f"ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({by}), "
-                f"{flops / ms / 1e9:.2f} TFLOP/s")
+                f"ms (PR 5: {FWD_PR5_MS[(CANDIDATES, T)]}), plain "
+                f"{plain:.4f} ms, bound {b_ms:.4f} ms ({by}) at the f32 FMA "
+                f"peak, {tc:.4f} ms at the TF32 tensor-core peak for "
+                f"3xTF32, {flops / ms / 1e9:.2f} TFLOP/s")
 
     def per_request(key):
         return sum(s[key] * s["per_request"] for s in shapes)
@@ -352,6 +370,11 @@ def serve_phase(cfg, dev) -> tuple[dict, dict]:
     b_ops = sum(s["flop"] * s["per_request"] for s in shapes)
     b_bytes = sum(s["bytes"] * s["per_request"] for s in shapes)
     log(f"request p50 {p50:.3f} ms")
+    t50 = next(s for s in shapes if s["T"] == 50)
+    targets = {"T50_below_plain": t50["ms"] < t50["plain_ms"]}
+    log(f"fused_block_fwd targets at B={CANDIDATES} f32: "
+        f"{json.dumps(targets)} (T=50 {t50['ms']:.4f} ms, plain "
+        f"{t50['plain_ms']:.4f})")
     return {
         "name": "fused_block_fwd",
         "route": "cuda",
@@ -370,6 +393,9 @@ def serve_phase(cfg, dev) -> tuple[dict, dict]:
                         "LN, FF)",
         "unit": "ms per request: 2 launches at T=50 + 1 at T=10, B=300",
         "shapes": shapes,
+        "targets": targets,
+        "tc_bound_ms": per_request("tc_bound_ms"),
+        "tc_bound_note": TC_BOUND_NOTE,
     }, serve
 
 
@@ -839,20 +865,26 @@ def block_train_phase(params, counts, dev):
                        block.block_bytes(TRAIN_BATCH, T, 80, 320, 4))
             bb = bound(block.block_bwd_flops(TRAIN_BATCH, T, 80, 320),
                        block.block_bwd_bytes(TRAIN_BATCH, T, 80, 320, 4))
-            tc = block.block_bwd_tc_bound_ms(TRAIN_BATCH, T, 80, 320,
-                                             torch.float32)
+            tc = block.block_tc_bound_ms(
+                block.block_bwd_flops(TRAIN_BATCH, T, 80, 320), torch.float32)
+            f_tc = block.block_tc_bound_ms(
+                block.block_flops(TRAIN_BATCH, T, 80, 320), torch.float32)
             fwd_shapes.append({"B": TRAIN_BATCH, "T": T, "dtype": dname,
                                "dropout": DROPOUT, "per_step": per,
                                "ms": f_ms, "plain_ms": f_plain,
-                               "bound_ms": fb[0], "bound_by": fb[1]})
+                               "bound_ms": fb[0], "bound_by": fb[1],
+                               "tc_bound_ms": f_tc})
             bwd_shapes.append({"B": TRAIN_BATCH, "T": T, "dtype": dname,
                                "dropout": DROPOUT, "per_step": per,
                                "ms": b_ms, "plain_ms": b_plain,
                                "bound_ms": bb[0], "bound_by": bb[1],
                                "tc_bound_ms": tc})
             log(f"block train B={TRAIN_BATCH} T={T} f32: forward {f_ms:.4f} "
-                f"ms (plain {f_plain:.4f}, bound {fb[0]:.4f} {fb[1]}); "
-                f"backward {b_ms:.4f} ms (plain {b_plain:.4f}, bound "
+                f"ms (PR 5: {FWD_PR5_MS[(TRAIN_BATCH, T)]}; plain "
+                f"{f_plain:.4f}, bound {fb[0]:.4f} {fb[1]}, {f_tc:.4f} at "
+                "the TF32 tensor-core peak for 3xTF32); backward "
+                f"{b_ms:.4f} ms (PR 5: {BWD_PR5_MS[T]}; plain {b_plain:.4f}, "
+                "bound "
                 f"{bb[0]:.4f} {bb[1]} at the f32 FMA peak, {tc:.4f} at the "
                 "TF32 tensor-core peak for 3xTF32)")
 
@@ -873,14 +905,15 @@ def block_train_phase(params, counts, dev):
         unit="ms per training step: 2 launches at T=50 + 1 at T=10, "
              "B=2048, f32, dropout 0.1",
         shapes=bwd_shapes, deterministic=True, rounding=rounding,
-        tc_bound_ms=per_step("tc_bound_ms"),
-        tc_bound_note="3 x operations over the dense TF32 tensor-core "
-                      "peak (495 TFLOP/s), the 3xTF32 split; bound_ms "
-                      "divides the operations by the float32 FMA peak "
-                      "(67 TFLOP/s)")
+        tc_bound_ms=per_step("tc_bound_ms"), tc_bound_note=TC_BOUND_NOTE)
     bwd["targets"] = block_bwd_targets(bwd_shapes)
     return fwd_shapes, fwd_err, bwd
 
+
+# what a block kernel's tc_bound_ms counts
+TC_BOUND_NOTE = ("3 x operations over the dense TF32 tensor-core peak (495 "
+                 "TFLOP/s), the 3xTF32 split; bound_ms divides the "
+                 "operations by the float32 FMA peak (67 TFLOP/s)")
 
 # the block backward's targets at B=2048, float32, dropout 0.1: within 10
 # ms at T=50 and 4.8 ms at T=10.  Reported, not enforced: a kernel that
@@ -895,6 +928,207 @@ def block_bwd_targets(shapes) -> dict:
         f"(" + ", ".join(f"T={s['T']} {s['ms']:.4f} ms, limit "
                          f"{BLOCK_BWD_MS[s['T']]}" for s in shapes) + ")")
     return out
+
+
+# PR 5's times of the kernels at the main paths' shapes (PERF.md, NVIDIA
+# H100 80GB HBM3 at 700 W, f32), printed beside this run's
+FWD_PR5_MS = {(CANDIDATES, 50): 0.6877, (CANDIDATES, 10): 0.1704,
+              (TRAIN_BATCH, 50): 3.6805, (TRAIN_BATCH, 10): 0.7221}
+BWD_PR5_MS = {50: 5.6249, 10: 1.7759}
+ATT_FWD_PR5_MS = {(50, 50): 0.1929, (10, 10): 0.0214, (1, 50): 0.0285,
+                  (1, 10): 0.0077}
+ATT_BWD_PR5_MS = {(50, 50): 0.4023, (10, 10): 0.0552, (1, 50): 0.0878,
+                  (1, 10): 0.0226}
+
+# widths other than the model's, (D, F, heads, T): a head width that is
+# not a multiple of 8 with F not a multiple of 8, two wide heads past 50
+# keys, the model's widths at a T whose activations spill out of shared
+# memory into the kernels' workspace, and a T past the register tilings
+# of the encoder attention (a warp a query row)
+WIDTH_CASES = ((36, 100, 3, 7), (64, 256, 2, 60), (80, 320, 4, 200),
+               (36, 100, 3, 300))
+WIDTH_BATCH = 131
+# attention past the register tilings, (Tq, Tk, heads, head width)
+ATT_WIDTH_CASES = ((65, 65, 4, 20), (1, 200, 2, 72), (200, 200, 2, 72),
+                   (10, 10, 1, 72))
+# the forward-vs-replay check: T, at B=300, dropout 0.1; 55 and 128 run
+# the SPILL instantiation (at 55 only the backward's activations would
+# overflow shared memory, and the forward follows it)
+REPLAY_TS = (1, 10, 50, 55, 128)
+
+
+def width_block_case(D, F, H, T, dtype, dev, B=WIDTH_BATCH, seed=0):
+    """Packed weights of one encoder and one decoder sub-block at widths
+    (D, F, H) with random biases and layer-norm scales (so a misplaced
+    padding column shows), inputs with lengths 0..T, dropout 0.1, and a
+    cotangent."""
+    from cikm2020_dmt_torch.core.config import TransformerConfig
+    from cikm2020_dmt_torch.nn.transformer import transformer_init
+    from cikm2020_dmt_torch.ops import block
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = transformer_init(gen, TransformerConfig(d_model=D, d_ff=F,
+                                                num_heads=H, maxlen_k=T))
+
+    def jitter(ws):
+        wqkv, vecs, w1, b1, w2 = ws
+        return (wqkv, vecs + 0.1 * torch.randn(vecs.shape, generator=gen,
+                                               device=dev),
+                w1, b1 + 0.1 * torch.randn(b1.shape, generator=gen,
+                                           device=dev), w2)
+
+    ew = jitter(block.pack_weights(p["enc"][0]))
+    dw = jitter(block.pack_weights(p["dec"][0]))
+    enc = torch.randn(B, T, D, generator=gen, device=dev).to(dtype)
+    dec = torch.randn(B, D, generator=gen, device=dev).to(dtype)
+    lens = torch.arange(B, device=dev) % (T + 1)
+    mask = (torch.arange(T, device=dev)[None] < lens[:, None]).float()
+    g = torch.randn(B, D, generator=gen, device=dev).to(dtype)
+    kw = dict(enc_in=enc, dec_in=dec, seq_mask=mask, num_heads=H,
+              train=True, rate=DROPOUT,
+              seed=torch.tensor([seed + 11], dtype=torch.int32, device=dev))
+    return ew, dw, g, kw
+
+
+def check_block_width(D, F, H, T, dtype, dev, B=WIDTH_BATCH) -> dict:
+    """Both block kernels at widths (D, F, H) and length T against their
+    plain versions on the same inputs and masks: the forward within
+    ``KERNEL_TOL``, the backward norm-wise within ``BWD_TOL_F32`` (float32)
+    or within ``BWD_BF16_FACTOR`` times the bfloat16 plain version's own
+    distance from the float32 one, plus ``BWD_TOL_F32`` (bfloat16).
+    Raises on failure; returns the errors."""
+    from cikm2020_dmt_torch.ops import block
+
+    ew, dw, g, kw = width_block_case(D, F, H, T, dtype, dev, B)
+    args = (kw["enc_in"], kw["dec_in"], kw["seq_mask"], H, True, DROPOUT,
+            kw["seed"])
+    got = block._fwd_kernel(ew, dw, *args)
+    ref = block._fwd_ref(ew, dw, *args)
+    gb = block.fused_block_bwd(ew, dw, g=g, **kw)
+    rb = block.fused_block_bwd_ref(ew, dw, g=g, **kw)
+    torch.cuda.synchronize()
+    f_err = float((got.float() - ref.float()).abs().max())
+    if dtype == torch.float32:
+        b_err, _ = _bwd_err(gb, rb)
+        tol = BWD_TOL_F32
+    else:
+        kw32 = dict(kw, enc_in=kw["enc_in"].float(),
+                    dec_in=kw["dec_in"].float())
+        r32 = block.fused_block_bwd_ref(ew, dw, g=g.float(), **kw32)
+        b_err, _ = _bwd_err(gb, r32)
+        tol = BWD_BF16_FACTOR * _bwd_err(rb, r32)[0] + BWD_TOL_F32
+    dname = str(dtype).split(".")[-1]
+    where = f"D={D} F={F} H={H} T={T} B={B} {dname}"
+    log(f"block kernels at {where}: forward max |diff| {f_err:.3e} (tol "
+        f"{KERNEL_TOL[dtype]}); backward norm-wise {b_err:.3e} (tol "
+        f"{tol:.3e})")
+    finite = torch.isfinite(got.float()).all() and all(
+        torch.isfinite(t.float()).all() for t in _flat(gb))
+    if not (finite and f_err <= KERNEL_TOL[dtype] and b_err <= tol):
+        raise AssertionError(f"block kernels disagree at {where}: forward "
+                             f"{f_err}, backward {b_err}")
+    return {"D": D, "F": F, "H": H, "T": T, "B": B, "dtype": dname,
+            "fwd_max_abs_err": f_err, "bwd_rel_err": b_err, "bwd_tol": tol}
+
+
+def check_attention_width(Tq, Tk, H, dh, dtype, dev, B=WIDTH_BATCH) -> dict:
+    """Both attention kernels at (Tq, Tk) and heads of dh columns against
+    their plain versions with the main path's tolerances: float32 forward
+    within ``KERNEL_TOL``, backward within ``ATT_BWD_TOL`` of each output's
+    max; bfloat16 forward by ``bf16_attention_fwd_check``, backward within
+    ``BWD_BF16_FACTOR`` times the bfloat16 plain version's distance from
+    the float32 one, plus ``ATT_BWD_TOL``.  Raises on failure."""
+    from cikm2020_dmt_torch.ops import attention as att
+
+    gen = torch.Generator(device=dev).manual_seed(Tq * 1000 + Tk + dh)
+    D = H * dh
+    q, k, v, do = (torch.randn(B, T, D, generator=gen, device=dev)
+                   .to(dtype) for T in (Tq, Tk, Tk, Tq))
+    km = (torch.arange(Tk, device=dev)[None]
+          < (torch.arange(B, device=dev) % (Tk + 1))[:, None]).float()
+    qm = km if Tq == Tk else torch.ones(B, Tq, device=dev)
+    got = att.fused_attention(q, k, v, qm, km, H)
+    ref = att.fused_attention_ref(q, k, v, qm, km, H)
+    gb = att.fused_attention_bwd(q, k, v, qm, km, do, H)
+    rb = att.fused_attention_bwd_ref(q, k, v, qm, km, do, H)
+    torch.cuda.synchronize()
+    f_err = float((got.float() - ref.float()).abs().max())
+    if dtype == torch.float32:
+        f_ok = f_err <= KERNEL_TOL[dtype]
+        b_err, tol = _max_rel(gb, rb), ATT_BWD_TOL
+    else:
+        ratio, share = bf16_attention_fwd_check(got, ref, q, k, v, qm, km, H)
+        f_ok = ratio <= 1.0 and share <= ATT_BF16_DIFF_SHARE
+        r32 = att.fused_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                          qm, km, do.float(), H)
+        b_err = _max_rel(gb, r32)
+        tol = BWD_BF16_FACTOR * _max_rel(rb, r32) + ATT_BWD_TOL
+    dname = str(dtype).split(".")[-1]
+    where = f"B={B} Tq={Tq} Tk={Tk} H={H} dh={dh} {dname}"
+    log(f"attention kernels at {where}: forward max |diff| {f_err:.3e}; "
+        f"backward {b_err:.3e} of each output's max (tol {tol:.3e})")
+    finite = torch.isfinite(got.float()).all() and all(
+        torch.isfinite(t.float()).all() for t in gb)
+    if not (finite and f_ok and b_err <= tol):
+        raise AssertionError(f"attention kernels disagree at {where}: "
+                             f"forward {f_err}, backward {b_err}")
+    return {"Tq": Tq, "Tk": Tk, "H": H, "dh": dh, "B": B, "dtype": dname,
+            "fwd_max_abs_err": f_err, "bwd_rel_err": b_err, "bwd_tol": tol}
+
+
+def check_replay(T, dtype, dev, B=CANDIDATES, widths=(80, 320, 4)) -> dict:
+    """The FF pre-activations (h1 w1 + b1, encoder and decoder) that the
+    forward kernel formed and that the backward kernel's replay formed, on
+    the same inputs with dropout 0.1: they must be the same bits, so every
+    ReLU takes in the backward the branch it took in the forward.  Raises
+    if any element differs."""
+    from cikm2020_dmt_torch.ops import block
+
+    D, F, H = widths
+    ew, dw, _, kw = width_block_case(D, F, H, T, dtype, dev, B, seed=T)
+    fwd, bwd = block.ff_preactivations(ew, dw, **kw)
+    torch.cuda.synchronize()
+    live = kw["seq_mask"] > 0
+    diff = [int((a != b)[live].sum()) if a.dim() == 3 else int((a != b).sum())
+            for a, b in zip(fwd, bwd)]
+    dname = str(dtype).split(".")[-1]
+    n = [int(live.sum()) * F, B * F]
+    log(f"forward vs replay FF pre-activations at D={D} T={T} B={B} {dname}"
+        f", dropout {DROPOUT}: {diff[0]} of {n[0]} encoder and {diff[1]} of "
+        f"{n[1]} decoder elements differ")
+    if any(diff) or not all(torch.isfinite(t[live] if t.dim() == 3 else t)
+                            .all() for t in fwd):
+        raise AssertionError(f"the backward's replay does not reproduce the "
+                             f"forward at T={T} {dname}: {diff}")
+    return {"T": T, "dtype": dname, "B": B, "differ": diff, "elements": n}
+
+
+def widths_phase(dev) -> dict:
+    """The forward-vs-replay check at the model's widths, then the block
+    and attention kernels at the other widths, float32 and bfloat16."""
+    out = {"replay": [], "block": [], "attention": []}
+    for T in REPLAY_TS:
+        for dtype in (torch.float32, torch.bfloat16):
+            out["replay"].append(check_replay(T, dtype, dev))
+    for D, F, H, T in WIDTH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            out["block"].append(check_block_width(D, F, H, T, dtype, dev))
+    for Tq, Tk, H, dh in ATT_WIDTH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            out["attention"].append(check_attention_width(Tq, Tk, H, dh,
+                                                          dtype, dev))
+    return out
+
+
+def build_specs():
+    """Every kernel library this script runs: the block kernels at the
+    model's widths and at the other widths of ``WIDTH_CASES``."""
+    from cikm2020_dmt_torch.ops import block
+
+    widths = sorted({(80, 320, 4)} | {c[:3] for c in WIDTH_CASES})
+    return [k for k in KERNELS if not k.startswith("fused_block")] + [
+        block.library(k, *w) for w in widths
+        for k in (block.KERNEL, block.BWD_KERNEL)]
 
 
 def segsum_phase(cfg, tr, state, batch, counts, dev):
@@ -1314,8 +1548,9 @@ def _time_attention_fwd(att, sdpa, B, Tq, Tk, part, per_step, q, k, v, qm,
     lib = cuda_ms(lambda: sdpa(*args[:3], attn_mask=args[3]), 10)
     b = bound(att.attention_flops(B, Tq, Tk, 80),
               att.attention_bytes(B, Tq, Tk, 80, 4))
+    pr5 = ATT_FWD_PR5_MS[(Tq, Tk)] if B == TRAIN_BATCH else "not timed"
     log(f"attention_fwd B={B} {part} Tq={Tq} Tk={Tk} f32: kernel {ms:.4f} "
-        f"ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound {b[0]:.4f} ms "
+        f"ms (PR 5: {pr5}), plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound {b[0]:.4f} ms "
         f"({b[1]})")
     return {"kernel": "attention_fwd", "B": B, "Tq": Tq, "Tk": Tk,
             "part": part, "dtype": "float32", "per_step": per_step,
@@ -1337,8 +1572,9 @@ def _time_attention_bwd(att, sdpa, B, Tq, Tk, part, per_step, q, k, v, qm,
     del out
     b = bound(att.attention_bwd_flops(B, Tq, Tk, 80),
               att.attention_bwd_bytes(B, Tq, Tk, 80, 4))
+    pr5 = ATT_BWD_PR5_MS[(Tq, Tk)] if B == TRAIN_BATCH else "not timed"
     log(f"attention_bwd B={B} {part} Tq={Tq} Tk={Tk} f32: kernel {ms:.4f} "
-        f"ms, plain {plain:.4f} ms, SDPA backward {lib:.4f} ms, bound "
+        f"ms (PR 5: {pr5}), plain {plain:.4f} ms, SDPA backward {lib:.4f} ms, bound "
         f"{b[0]:.4f} ms ({b[1]})")
     return {"kernel": "attention_bwd", "B": B, "Tq": Tq, "Tk": Tk,
             "part": part, "dtype": "float32", "per_step": per_step,
@@ -1360,12 +1596,18 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    # ---- build every kernel, one nvcc per source, in parallel ----
+    # ---- build every kernel library (the block kernels at each width of
+    # the run), one nvcc per library, in parallel ----
     t0 = time.perf_counter()
-    seconds = _build.build(KERNELS)
-    log(f"build: {json.dumps(seconds)} wall {time.perf_counter() - t0:.2f}s")
-    for name in KERNELS:
-        for line in _build.build_log(name).splitlines():
+    specs = build_specs()
+    seconds = _build.build(specs)
+    build_wall = time.perf_counter() - t0
+    log(f"build: {json.dumps(seconds)} wall {build_wall:.2f}s")
+    for spec in specs:
+        if not isinstance(spec, str) and "BLOCK_D=80" not in spec[1]:
+            continue  # ptxas lines of the model's widths only
+        name = spec if isinstance(spec, str) else spec[0]
+        for line in _build.build_log(spec).splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
@@ -1386,6 +1628,11 @@ def main() -> int:
                launches_by_path={"serve": serve_launches,
                                  "train": counts["fused_block_fwd"]},
                train_shapes=fwd_shapes)
+    t_w = time.perf_counter()
+    widths = widths_phase(dev)
+    log(f"widths phase: wall {time.perf_counter() - t_w:.1f}s")
+    fwd["replay_bit_equal"] = widths["replay"]
+    fwd["other_widths"] = bwd["other_widths"] = widths["block"]
     seg, col = segsum_phase(cfg, train["trainer"], train["state"],
                             train["batches"][0], counts, dev)
     rows = update_phase(train["state"], col, counts, dev)
@@ -1411,6 +1658,7 @@ def main() -> int:
                   + train2["counts"][k]
                   for k in ("attention_fwd", "attention_bwd")}
     att_fwd, att_bwd = attention_phase(att_counts, dev)
+    att_fwd["other_widths"] = att_bwd["other_widths"] = widths["attention"]
     att_fwd["launches_by_path"] = {
         "serve": serve2["counts"]["attention_fwd"],
         "eval": ev["counts"]["attention_fwd"],
@@ -1430,6 +1678,7 @@ def main() -> int:
         f"training step {train2['step_ms']:.3f} ms, "
         f"{train2['examples_per_s']:.1f} examples/s at batch {TRAIN_BATCH}; "
         f"wall {t_two:.1f}s")
+    log(f"build wall {build_wall:.2f}s")
     print(smi)
     print(json.dumps({"kernels": [fwd, bwd, seg] + rows
                       + [att_fwd, att_bwd]}))

@@ -71,6 +71,10 @@
 // block does its units at once, not in turn, and several blocks per SM
 // overlap one block's loads with another's arithmetic.
 //
+// Past 64 keys or query rows, or a head wider than 64 columns, the
+// launcher takes attention_bwd_rows and attention_bwd_cols instead
+// (attention_rows.cuh), with the row statistics in the caller's workspace.
+//
 // Each output element has one owner thread that sums in a fixed order, so
 // two launches on the same inputs give the same bits.
 
@@ -80,11 +84,11 @@
 
 #include <cuda_runtime.h>
 
+#include "attention_rows.cuh"
 #include "block_common.cuh"
 
 namespace {
 
-constexpr int kMaxT = 64;
 constexpr int kBwdThreads = 128;
 // at most 102 registers a thread, so that five blocks share an SM at T=50;
 // with one query row a lane group (Tq <= 4) at most 64, so that eight do
@@ -529,6 +533,182 @@ __global__ void __launch_bounds__(kBwdThreads, RQ == 1 ? kMinBlocksSmall
   }
 }
 
+// Any shape (attention_rows.cuh), in two kernels.  Rows: one warp a query
+// row forms the row's max and sum, rowsum(dP P0), and dq = scale rnd(dS) k,
+// and keeps the three row statistics.  Columns: one warp a key forms dk =
+// scale rnd(dS)^T q and dv = rnd(P0 q_mask)^T do from them, recomputing
+// each row's score, P0 and dP.
+template <typename TIn>
+__global__ void __launch_bounds__(32 * kRowWarps)
+    attention_bwd_rows(const TIn* __restrict__ q, const TIn* __restrict__ k,
+                       const TIn* __restrict__ v,
+                       const float* __restrict__ qm,
+                       const float* __restrict__ km,
+                       const TIn* __restrict__ dout, TIn* __restrict__ dq,
+                       float* __restrict__ stats, int n_items, int Tq, int Tk,
+                       int D, int H, float scale) {
+  constexpr bool BF16 = !std::is_same<TIn, float>::value;
+  const int lane = threadIdx.x & 31;
+  const int item = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  if (item >= n_items) return;
+  const int dh = D / H;
+  const RowItem it = row_item(item, Tq, H);
+  const size_t row = static_cast<size_t>(it.b) * Tq + it.r;
+  const TIn* qr = q + row * D + it.h * dh;
+  const TIn* dr = dout + row * D + it.h * dh;
+  const TIn* kb = k + static_cast<size_t>(it.b) * Tk * D + it.h * dh;
+  const TIn* vb = v + static_cast<size_t>(it.b) * Tk * D + it.h * dh;
+  const float* kmb = km + static_cast<size_t>(it.b) * Tk;
+  const float qmr = __ldg(qm + row);
+  float m, sum;
+  row_stats(qr, kb, kmb, Tk, D, dh, scale, m, sum);
+  const float inv = 1.f / sum;
+  // P0 and dP of this lane's key j
+  const auto p0_dp = [&](int j, float& p0, float& dp) {
+    const size_t o = static_cast<size_t>(j) * D;
+    p0 = expf(row_score(qr, kb + o, dh, __ldg(kmb + j), scale) - m) * inv;
+    dp = dot_row(dr, vb + o, dh) * qmr;
+  };
+  float rs = 0.f;
+  for (int j = lane; j < Tk; j += 32) {
+    float p0, dp;
+    p0_dp(j, p0, dp);
+    rs = fmaf(dp, p0, rs);
+  }
+  rs = warp_sum(rs);
+  if (lane == 0) {
+    stats[3 * static_cast<size_t>(item)] = m;
+    stats[3 * static_cast<size_t>(item) + 1] = inv;
+    stats[3 * static_cast<size_t>(item) + 2] = rs;
+  }
+  TIn* dqr = dq + row * D + it.h * dh;
+  for (int c0 = 0; c0 < dh; c0 += 32 * kSlabCols) {
+    float o[kSlabCols];
+#pragma unroll
+    for (int c = 0; c < kSlabCols; ++c) o[c] = 0.f;
+    for (int j0 = 0; j0 < Tk; j0 += 32) {
+      const int j = j0 + lane;
+      float ds = 0.f;
+      if (j < Tk) {
+        float p0, dp;
+        p0_dp(j, p0, dp);
+        ds = rnd<BF16>(__ldg(kmb + j) > 0.f ? p0 * (dp - rs) : 0.f);
+      }
+      const int n = min(32, Tk - j0);
+      for (int jj = 0; jj < n; ++jj) {
+        const float sj = __shfl_sync(0xffffffffu, ds, jj);
+        const TIn* kr = kb + static_cast<size_t>(j0 + jj) * D;
+#pragma unroll
+        for (int c = 0; c < kSlabCols; ++c) {
+          const int col = c0 + lane + 32 * c;
+          if (col < dh) o[c] = fmaf(sj, to_float(kr[col]), o[c]);
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kSlabCols; ++c) {
+      const int col = c0 + lane + 32 * c;
+      if (col < dh) store(dqr + col, o[c] * scale);
+    }
+  }
+}
+
+template <typename TIn>
+__global__ void __launch_bounds__(32 * kRowWarps)
+    attention_bwd_cols(const TIn* __restrict__ q, const TIn* __restrict__ k,
+                       const TIn* __restrict__ v,
+                       const float* __restrict__ qm,
+                       const float* __restrict__ km,
+                       const TIn* __restrict__ dout, TIn* __restrict__ dk,
+                       TIn* __restrict__ dv, const float* __restrict__ stats,
+                       int n_items, int Tq, int Tk, int D, int H,
+                       float scale) {
+  constexpr bool BF16 = !std::is_same<TIn, float>::value;
+  const int lane = threadIdx.x & 31;
+  const int item = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  if (item >= n_items) return;
+  const int dh = D / H;
+  const RowItem it = row_item(item, Tk, H);  // it.r: the key
+  const size_t key = static_cast<size_t>(it.b) * Tk + it.r;
+  const TIn* kr = k + key * D + it.h * dh;
+  const TIn* vr = v + key * D + it.h * dh;
+  const float kmj = __ldg(km + key);
+  const TIn* qb = q + static_cast<size_t>(it.b) * Tq * D + it.h * dh;
+  const TIn* db = dout + static_cast<size_t>(it.b) * Tq * D + it.h * dh;
+  const float* st = stats + 3 * (static_cast<size_t>(it.b) * H + it.h) * Tq;
+  const float* qmb = qm + static_cast<size_t>(it.b) * Tq;
+  for (int c0 = 0; c0 < dh; c0 += 32 * kSlabCols) {
+    float ok[kSlabCols], ov[kSlabCols];
+#pragma unroll
+    for (int c = 0; c < kSlabCols; ++c) ok[c] = ov[c] = 0.f;
+    for (int r0 = 0; r0 < Tq; r0 += 32) {
+      const int r = r0 + lane;
+      float P = 0.f, S = 0.f;
+      if (r < Tq) {
+        const size_t o = static_cast<size_t>(r) * D;
+        const float qmr = __ldg(qmb + r);
+        const float p0 =
+            expf(row_score(qb + o, kr, dh, kmj, scale) - st[3 * r]) *
+            st[3 * r + 1];
+        const float dp = dot_row(db + o, vr, dh) * qmr;
+        P = rnd<BF16>(p0 * qmr);
+        S = rnd<BF16>(kmj > 0.f ? p0 * (dp - st[3 * r + 2]) : 0.f);
+      }
+      const int n = min(32, Tq - r0);
+      for (int rr = 0; rr < n; ++rr) {
+        const float pr = __shfl_sync(0xffffffffu, P, rr);
+        const float sr = __shfl_sync(0xffffffffu, S, rr);
+        const size_t o = static_cast<size_t>(r0 + rr) * D;
+#pragma unroll
+        for (int c = 0; c < kSlabCols; ++c) {
+          const int col = c0 + lane + 32 * c;
+          if (col < dh) {
+            ok[c] = fmaf(sr, to_float(qb[o + col]), ok[c]);
+            ov[c] = fmaf(pr, to_float(db[o + col]), ov[c]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kSlabCols; ++c) {
+      const int col = c0 + lane + 32 * c;
+      if (col < dh) {
+        store(dk + key * D + it.h * dh + col, ok[c] * scale);
+        store(dv + key * D + it.h * dh + col, ov[c]);
+      }
+    }
+  }
+}
+
+template <typename TIn>
+cudaError_t launch_rows(const void* q, const void* k, const void* v,
+                        const void* qm, const void* km, const void* dout,
+                        void* dq, void* dk, void* dv, float* stats, int B,
+                        int Tq, int Tk, int D, int H, float scale,
+                        cudaStream_t stream) {
+  const int rows = B * H * Tq;
+  const int keys = B * H * Tk;
+  constexpr int kT = 32 * kRowWarps;
+  const auto* qc = static_cast<const TIn*>(q);
+  const auto* kc = static_cast<const TIn*>(k);
+  const auto* vc = static_cast<const TIn*>(v);
+  const auto* dc = static_cast<const TIn*>(dout);
+  const auto* qmc = static_cast<const float*>(qm);
+  const auto* kmc = static_cast<const float*>(km);
+  attention_bwd_rows<TIn><<<(rows + kRowWarps - 1) / kRowWarps, kT, 0,
+                            stream>>>(qc, kc, vc, qmc, kmc, dc,
+                                      static_cast<TIn*>(dq), stats, rows, Tq,
+                                      Tk, D, H, scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attention_bwd_cols<TIn><<<(keys + kRowWarps - 1) / kRowWarps, kT, 0,
+                            stream>>>(qc, kc, vc, qmc, kmc, dc,
+                                      static_cast<TIn*>(dk),
+                                      static_cast<TIn*>(dv), stats, keys, Tq,
+                                      Tk, D, H, scale);
+  return cudaGetLastError();
+}
+
 template <int DH, int RQ, typename TIn>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* qm, const void* km, const void* dout, void* dq,
@@ -562,9 +742,13 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 template <typename TIn>
 cudaError_t launch_dh(const void* q, const void* k, const void* v,
                       const void* qm, const void* km, const void* dout,
-                      void* dq, void* dk, void* dv, int B, int Tq, int Tk,
-                      int D, int H, float scale, cudaStream_t s) {
+                      void* dq, void* dk, void* dv, float* stats, int B,
+                      int Tq, int Tk, int D, int H, float scale,
+                      cudaStream_t s) {
   const int dh = D / H;
+  if (long_rows(Tq, Tk, dh))
+    return launch_rows<TIn>(q, k, v, qm, km, dout, dq, dk, dv, stats, B, Tq,
+                            Tk, D, H, scale, s);
   constexpr int kElem = static_cast<int>(sizeof(TIn));
   const auto al = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % (4 * kElem) == 0;
@@ -592,22 +776,34 @@ cudaError_t launch_dh(const void* q, const void* k, const void* v,
 
 extern "C" {
 
+// Floats of the workspace attention_bwd needs: the row statistics of the
+// any-shape kernels (3 a query row and head), 0 for the tiled kernels.
+long long attention_bwd_workspace(int B, int Tq, int Tk, int D, int H) {
+  if (H < 1 || D % H || !long_rows(Tq, Tk, D / H)) return 0;
+  return 3LL * B * H * Tq;
+}
+
 // Launches the kernel on `stream` (of the caller's current device); returns
 // the CUDA error code of the launch, 0 on success.  Does not synchronise.
-// The caller checks 1 <= Tq, Tk <= 64, D % H == 0 and D / H <= 64.
+// Takes any 1 <= Tq, Tk and D % H == 0; past 64 keys or query rows or a
+// head of 64 columns it launches attention_bwd_rows and attention_bwd_cols,
+// with `workspace` of attention_bwd_workspace floats.
 int attention_bwd(const void* q, const void* k, const void* v,
                   const void* q_mask, const void* k_mask, const void* dout,
-                  void* dq, void* dk, void* dv, int B, int Tq, int Tk, int D,
-                  int H, float scale, int is_bf16, void* stream) {
+                  void* dq, void* dk, void* dv, void* workspace, int B,
+                  int Tq, int Tk, int D, int H, float scale, int is_bf16,
+                  void* stream) {
   if (B == 0) return 0;
-  if (Tq < 1 || Tk < 1 || Tk > kMaxT || Tq > kMaxT || H < 1 || D % H)
+  if (Tq < 1 || Tk < 1 || H < 1 || D % H)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* stats = static_cast<float*>(workspace);
   const cudaError_t err =
       is_bf16 ? launch_dh<__nv_bfloat16>(q, k, v, q_mask, k_mask, dout, dq,
-                                         dk, dv, B, Tq, Tk, D, H, scale, s)
+                                         dk, dv, stats, B, Tq, Tk, D, H,
+                                         scale, s)
               : launch_dh<float>(q, k, v, q_mask, k_mask, dout, dq, dk, dv,
-                                 B, Tq, Tk, D, H, scale, s);
+                                 stats, B, Tq, Tk, D, H, scale, s);
   return static_cast<int>(err);
 }
 

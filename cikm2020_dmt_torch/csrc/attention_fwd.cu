@@ -60,6 +60,11 @@
 // query rows an item sharing each key load, and reading k and v straight
 // from memory at Tq > 4, were each slower (PERF.md).
 //
+// Past 64 keys or query rows, or a head wider than 64 columns, the
+// launcher takes attention_fwd_rows instead (attention_rows.cuh: one warp a
+// query row, a running max and sum over the keys, then P v in column
+// slabs).
+//
 // Each output element is summed by one group in a fixed order, so two
 // launches give the same bits.
 
@@ -68,12 +73,12 @@
 
 #include <cuda_runtime.h>
 
+#include "attention_rows.cuh"
 #include "block_common.cuh"
 #include "tiles.cuh"
 
 namespace {
 
-constexpr int kMaxT = 64;
 constexpr int kFwdThreads = 128;
 constexpr int kSmallTq = 4;       // Tq at or below: read straight from memory
 constexpr int kKeysWide = 16;     // key slots a lane, staged instantiation
@@ -247,6 +252,80 @@ __global__ void __launch_bounds__(kFwdThreads,
   }
 }
 
+// Any shape (attention_rows.cuh): one warp a query row; a second pass over
+// the keys forms each probability from the row's max and sum, rounds it,
+// and adds P v into kSlabCols columns a lane.
+template <typename TIn>
+__global__ void __launch_bounds__(32 * kRowWarps)
+    attention_fwd_rows(const TIn* __restrict__ q, const TIn* __restrict__ k,
+                       const TIn* __restrict__ v,
+                       const float* __restrict__ qm,
+                       const float* __restrict__ km, TIn* __restrict__ out,
+                       int n_items, int Tq, int Tk, int D, int H,
+                       float scale) {
+  constexpr bool BF16 = !std::is_same<TIn, float>::value;
+  const int lane = threadIdx.x & 31;
+  const int item = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  if (item >= n_items) return;
+  const int dh = D / H;
+  const RowItem it = row_item(item, Tq, H);
+  const size_t row = static_cast<size_t>(it.b) * Tq + it.r;
+  const TIn* qr = q + row * D + it.h * dh;
+  const TIn* kb = k + static_cast<size_t>(it.b) * Tk * D + it.h * dh;
+  const TIn* vb = v + static_cast<size_t>(it.b) * Tk * D + it.h * dh;
+  const float* kmb = km + static_cast<size_t>(it.b) * Tk;
+  float m, sum;
+  row_stats(qr, kb, kmb, Tk, D, dh, scale, m, sum);
+  // one division a row, as the tiled kernel: e * (q_mask / sum)
+  const float scl = __ldg(qm + row) / sum;
+  TIn* orow = out + row * D + it.h * dh;
+  for (int c0 = 0; c0 < dh; c0 += 32 * kSlabCols) {
+    float o[kSlabCols];
+#pragma unroll
+    for (int c = 0; c < kSlabCols; ++c) o[c] = 0.f;
+    for (int j0 = 0; j0 < Tk; j0 += 32) {
+      const int j = j0 + lane;
+      const float p =
+          j < Tk ? rnd<BF16>(expf(row_score(qr, kb + static_cast<size_t>(j) *
+                                                         D,
+                                            dh, __ldg(kmb + j), scale) -
+                                  m) *
+                             scl)
+                 : 0.f;
+      const int n = min(32, Tk - j0);
+      for (int jj = 0; jj < n; ++jj) {
+        const float pj = __shfl_sync(0xffffffffu, p, jj);
+        const TIn* vr = vb + static_cast<size_t>(j0 + jj) * D;
+#pragma unroll
+        for (int c = 0; c < kSlabCols; ++c) {
+          const int col = c0 + lane + 32 * c;
+          if (col < dh) o[c] = fmaf(pj, to_float(vr[col]), o[c]);
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kSlabCols; ++c) {
+      const int col = c0 + lane + 32 * c;
+      if (col < dh) store(orow + col, o[c]);
+    }
+  }
+}
+
+template <typename TIn>
+cudaError_t launch_rows(const void* q, const void* k, const void* v,
+                        const void* qm, const void* km, void* out, int B,
+                        int Tq, int Tk, int D, int H, float scale,
+                        cudaStream_t stream) {
+  const int n_items = B * H * Tq;
+  attention_fwd_rows<TIn>
+      <<<(n_items + kRowWarps - 1) / kRowWarps, 32 * kRowWarps, 0, stream>>>(
+          static_cast<const TIn*>(q), static_cast<const TIn*>(k),
+          static_cast<const TIn*>(v), static_cast<const float*>(qm),
+          static_cast<const float*>(km), static_cast<TIn*>(out), n_items, Tq,
+          Tk, D, H, scale);
+  return cudaGetLastError();
+}
+
 template <int DH, bool WIDE, typename TIn>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* qm, const void* km, void* out, int B, int Tq,
@@ -297,6 +376,8 @@ cudaError_t launch_dh(const void* q, const void* k, const void* v,
                       int Tq, int Tk, int D, int H, float scale,
                       cudaStream_t s) {
   const int dh = D / H;
+  if (long_rows(Tq, Tk, dh))
+    return launch_rows<TIn>(q, k, v, qm, km, out, B, Tq, Tk, D, H, scale, s);
   constexpr int kElem = static_cast<int>(sizeof(TIn));
   const auto al = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % (4 * kElem) == 0;
@@ -325,13 +406,14 @@ extern "C" {
 
 // Launches the kernel on `stream` (of the caller's current device); returns
 // the CUDA error code of the launch, 0 on success.  Does not synchronise.
-// The caller checks 1 <= Tq, Tk <= 64, D % H == 0 and D / H <= 64.
+// Takes any 1 <= Tq, Tk and D % H == 0; past 64 keys or query rows or a
+// head of 64 columns it launches attention_fwd_rows.
 int attention_fwd(const void* q, const void* k, const void* v,
                   const void* q_mask, const void* k_mask, void* out, int B,
                   int Tq, int Tk, int D, int H, float scale, int is_bf16,
                   void* stream) {
   if (B == 0) return 0;
-  if (Tq < 1 || Tk < 1 || Tk > kMaxT || Tq > kMaxT || H < 1 || D % H)
+  if (Tq < 1 || Tk < 1 || H < 1 || D % H)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =

@@ -1,4 +1,4 @@
-// Fused Deep-Interest-Transformer block forward, one CUDA block per example.
+// Fused Deep-Interest-Transformer block forward.
 //
 // Replaces the TPU kernel cikm2020_dmt_tpu/ops/block.py `_make_fwd_kernel`
 // (launched through `_fwd_call`, entry `fused_encode_decode`).  For each
@@ -26,239 +26,155 @@
 // Types: enc/dec/out are float32 or bfloat16.  With bfloat16 every operand
 // of every product is rounded to bfloat16 first (the TPU kernel's compute
 // dtype); sums, softmax and layer norm run in float32.  Weights arrive in
-// float32 in the packed layout of ops/block.py `_pack_weights`: wqkv [D,3D],
+// float32 in the packed layout of ops/block.py `pack_weights`: wqkv [D,3D],
 // vecs [8,D] (bq bk bv ln1g ln1b ln2g ln2b b2), w1 [D,F], b1 [F], w2 [F,D].
 //
 // Bound: at the serving shape (T=50, D=80, F=320, 4 heads) one example is
-// ~9.2 MFLOP against ~17 KB of input, so the block is bound by float32
-// arithmetic (~42 us for 300 examples at 67 TFLOP/s), not by memory.
-// Design: every activation of an example stays in shared memory (~148 KB
-// at T=50, opted in above 48 KB); weights are read through the read-only
-// cache; each thread computes RT rows of one output column so one weight
-// load feeds RT FMAs.  No tensor cores yet: the next step is wgmma/mma.sync
-// tiles over several examples per block.
+// ~9.2 MFLOP against ~17 KB of input, so the block is bound by arithmetic
+// (~42 us for 300 examples at the 67 TFLOP/s float32 FMA peak), not by
+// memory.
+//
+// Design: the forward is the backward's replay (block_fwd_tiles.cuh
+// `replay`), so the two compute the same bits, and the backward's ReLU
+// branches are those of the forward that ran.  Two kernels in one call:
+// pack_kernel puts wqkv, w1, w2 and the decoder's K/V columns into mma
+// fragment order (split into TF32 hi and lo, or rounded to bfloat16) in
+// the caller's workspace; fused_block_fwd_kernel takes one example at a
+// time a block, a persistent grid of as many blocks as fit on the SMs,
+// 512 threads above T = 32 and 256 at or below, every activation of the
+// example in shared memory (or, wherever the backward's would not fit in
+// what a block can opt into, in its slice of the workspace: the two
+// kernels spill at the same T, so they run one instantiation of the
+// replay).  The products of T rows with a weight run on
+// the tensor cores (mma.sync m16n8k8, 3xTF32 for float32 and one TF32
+// pass for bfloat16 operands, which TF32 holds exactly); attention on the
+// FMA units, a query row to a group of lanes holding its keys in
+// registers; the decoder's one-row products split K over all threads and
+// add the slices in a fixed order.  It writes only out [B, D] (and, when
+// asked, the FF pre-activations, for the check that the backward's replay
+// reproduces them).
 
-#include <cfloat>
 #include <type_traits>
 
 #include <cuda_runtime.h>
 
-#include "block_common.cuh"
-#include "dropout.cuh"
+#include "block_fwd_tiles.cuh"
 
 namespace {
 
-// x[r] = LN(x[r] + add[r]) * gamma + beta for each row r < rows; one warp
-// per row, float32 statistics, population variance, eps inside the sqrt.
-__device__ void add_layer_norm(float* x, const float* add, int rows, int n,
-                               const float* __restrict__ gamma,
-                               const float* __restrict__ beta) {
-  const int lane = threadIdx.x & 31;
-  for (int r = threadIdx.x >> 5; r < rows; r += blockDim.x >> 5) {
-    float* xr = x + r * n;
-    const float* ar = add + r * n;
-    float s = 0.f;
-    for (int i = lane; i < n; i += 32) {
-      const float v = xr[i] + ar[i];
-      xr[i] = v;
-      s += v;
-    }
-    const float mean = warp_sum(s) / n;
-    float sq = 0.f;
-    for (int i = lane; i < n; i += 32) {
-      const float d = xr[i] - mean;
-      sq += d * d;
-    }
-    const float inv = rsqrtf(warp_sum(sq) / n + kLnEps);
-    for (int i = lane; i < n; i += 32)
-      xr[i] = (xr[i] - mean) * inv * __ldg(gamma + i) + __ldg(beta + i);
-  }
-}
-
-// Row softmax in place over rows of length n; row r is then scaled by
-// qmask[r % qmod] (qmask null: no query mask) and by the dropout mask of
-// head r / qmod, query r % qmod, and rounded to the compute dtype, since
-// probabilities only feed the P @ V product.
-template <bool BF16>
-__device__ void softmax_rows(float* s, int rows, int n, const float* qmask,
-                             int qmod, const Dropout& drop, unsigned site,
-                             unsigned b) {
-  const int lane = threadIdx.x & 31;
-  for (int r = threadIdx.x >> 5; r < rows; r += blockDim.x >> 5) {
-    float* sr = s + r * n;
-    float m = -FLT_MAX;
-    for (int i = lane; i < n; i += 32) m = fmaxf(m, sr[i]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int i = lane; i < n; i += 32) {
-      const float e = expf(sr[i] - m);
-      sr[i] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    const float q = qmask ? qmask[r % qmod] : 1.f;
-    const unsigned ex =
-        drop.on ? drop.example(site * 16 + r / qmod, b) : 0u;
-    for (int i = lane; i < n; i += 32)
-      sr[i] = rnd<BF16>(sr[i] / sum * q * drop.scale_at(ex, r % qmod, i));
-  }
-}
-
-inline size_t smem_floats(int T, int D, int F, int H) {
-  const size_t tt = static_cast<size_t>(H) * T * T;
-  const size_t tf = static_cast<size_t>(T) * F;
-  return static_cast<size_t>(T) * D            // X: E0, then f2 / H2
-         + static_cast<size_t>(T) * (3 * D + 1)  // QKV (decoder: Kd, Vd)
-         + static_cast<size_t>(T) * D      // C: ctx, then h1
-         + (tt > tf ? tt : tf)             // scores / FF hidden
-         + T                               // key mask
-         + 4 * static_cast<size_t>(D)      // D0, Qd, ctx_d / h1d, f2d
-         + F                               // decoder FF hidden
-         + static_cast<size_t>(H) * T;     // decoder scores
-}
-
-template <typename TIn>
-__global__ void __launch_bounds__(kThreads)
+template <int MGW, int NT, bool SPILL, typename TIn>
+__global__ void __launch_bounds__(NT, NT == 256 ? 2 : 1)
     fused_block_fwd_kernel(const TIn* __restrict__ enc,
                            const TIn* __restrict__ dec,
                            const float* __restrict__ mask, Weights ew,
-                           Weights dw, TIn* __restrict__ out, int T, int D,
-                           int F, int H, float scale, Dropout drop) {
+                           Weights dw, Packs pk, TIn* __restrict__ out,
+                           float* spill, Probe probe, int B, int T,
+                           float scale, Dropout drop) {
   constexpr bool BF16 = !std::is_same<TIn, float>::value;
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
-  const int dh = D / H;
-  const int D3 = 3 * D;
-  // QKV rows are D3 + 1 floats apart: an odd stride puts the K rows that
-  // neighbouring threads read in the score loops on distinct banks
-  const int LQ = D3 + 1;
-  const size_t tt = static_cast<size_t>(H) * T * T;
-  const size_t tf = static_cast<size_t>(T) * F;
-
-  float* X = smem;
-  float* QKV = X + T * D;
-  float* C = QKV + T * LQ;
-  float* SF = C + T * D;
-  float* km = SF + (tt > tf ? tt : tf);
-  float* d0 = km + T;
-  float* qd = d0 + D;
-  float* cd = qd + D;
-  float* f2d = cd + D;
-  float* fd = f2d + D;
-  float* sd = fd + F;
-
-  // ---- load ----
+  constexpr int NW = NT / 32;
+  extern __shared__ float4 smem4[];
+  float* base = reinterpret_cast<float*>(smem4);
+  if constexpr (SPILL)
+    base = spill + blockIdx.x * act_floats(T, NT, false);
+  const Act a = act_layout(base, T, NT, false);
   if (drop.on) drop.load_seed();
-  const TIn* e = enc + static_cast<size_t>(b) * T * D;
-  const unsigned ex_e = drop.on ? drop.example(kSiteEncIn, b) : 0u;
-  const unsigned ex_d = drop.on ? drop.example(kSiteDecIn, b) : 0u;
-  for (int i = threadIdx.x; i < T * D; i += blockDim.x)
-    X[i] = to_float(e[i]) * drop.scale_at(ex_e, i / D, i % D);
-  for (int i = threadIdx.x; i < D; i += blockDim.x)
-    d0[i] = to_float(dec[static_cast<size_t>(b) * D + i]) *
-            drop.scale_at(ex_d, 0, i);
-  for (int i = threadIdx.x; i < T; i += blockDim.x)
-    km[i] = mask[static_cast<size_t>(b) * T + i];
-  __syncthreads();
+  const Keep none{nullptr, nullptr, nullptr, nullptr};
 
-  // ---- encoder: QKV projection (stored rounded: only products read it) ----
-  matmul<BF16>(X, D, T, D, ew.wqkv, D3, ew.vecs, D3, QKV, LQ, false, true);
-  __syncthreads();
-
-  // scores [H, T, T], masked keys at -2^32+1
-  for (int idx = threadIdx.x; idx < H * T * T; idx += blockDim.x) {
-    const int h = idx / (T * T);
-    const int q = (idx / T) % T;
-    const int k = idx % T;
-    const float* qp = QKV + q * LQ + h * dh;
-    const float* kp = QKV + k * LQ + D + h * dh;
-    float s = 0.f;
-    for (int d = 0; d < dh; ++d) s = fmaf(qp[d], kp[d], s);
-    SF[idx] = km[k] > 0.f ? s * scale : kNegInf;
+  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+    load_example<BF16, NT>(a, enc, dec, mask, T, b, drop, nullptr, nullptr);
+    __syncthreads();
+    replay<MGW, BF16, NW, NT, SPILL>(a, T, pk, ew, dw, scale, drop, b, none,
+                                     probe, a.gd);
+    for (int j = threadIdx.x; j < kDp; j += NT) {
+      const int rj = dmap(j);
+      if (real<kMapD>(rj)) store(out + static_cast<size_t>(b) * kD + rj, a.gd[j]);
+    }
+    __syncthreads();
   }
-  __syncthreads();
-  softmax_rows<BF16>(SF, H * T, T, km, T, drop, kSiteEncProbs, b);
-  __syncthreads();
+}
 
-  // ctx = P V -> C
-  for (int idx = threadIdx.x; idx < T * D; idx += blockDim.x) {
-    const int q = idx / D;
-    const int j = idx % D;
-    const float* p = SF + (j / dh) * T * T + q * T;
-    const float* v = QKV + 2 * D + j;
-    float s = 0.f;
-    for (int k = 0; k < T; ++k) s = fmaf(p[k], v[k * LQ], s);
-    C[idx] = s;
+template <int MGW, int NT, bool SPILL, typename TIn>
+cudaError_t launch_main(const TIn* enc, const TIn* dec, const float* mask,
+                        Weights ew, Weights dw, Packs pk, TIn* out,
+                        float* spill, Probe probe, int B, int T, float scale,
+                        Dropout drop, int sms, cudaStream_t stream) {
+  auto kernel = fused_block_fwd_kernel<MGW, NT, SPILL, TIn>;
+  size_t bytes = 0;
+  int blocks = spill_blocks(B, sms);
+  if constexpr (!SPILL) {
+    bytes = act_floats(T, NT, false) * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT,
+                                                        bytes);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    blocks = B < sms * per_sm ? B : sms * per_sm;
   }
-  __syncthreads();
+  kernel<<<blocks, NT, bytes, stream>>>(enc, dec, mask, ew, dw, pk, out,
+                                        spill, probe, B, T, scale, drop);
+  return cudaGetLastError();
+}
 
-  // h1 = LN1(ctx + E0) in C; FF; H2 = LN2(f2 + h1) in X
-  add_layer_norm(C, X, T, D, ew.vecs + 3 * D, ew.vecs + 4 * D);
-  __syncthreads();
-  matmul<BF16>(C, D, T, D, ew.w1, F, ew.b1, F, SF, F, true, false);
-  __syncthreads();
-  matmul<BF16>(SF, F, T, F, ew.w2, D, ew.vecs + 7 * D, D, X, D, false, false);
-  __syncthreads();
-  add_layer_norm(X, C, T, D, ew.vecs + 5 * D, ew.vecs + 6 * D);
-  __syncthreads();
+// The threads and row tiles of the backward's per-example kernel at this T
+// (fused_block_bwd.cu launch_rows): the one-row products then split their
+// sums the same way.
+template <bool SPILL, typename TIn>
+cudaError_t launch_rows(const TIn* e, const TIn* d, const float* mk,
+                        Weights ew, Weights dw, Packs pk, TIn* o,
+                        float* spill, Probe probe, int B, int T, float scale,
+                        Dropout drop, int sms, cudaStream_t s) {
+  if (T > 32)
+    return launch_main<2, 512, SPILL>(e, d, mk, ew, dw, pk, o, spill, probe,
+                                      B, T, scale, drop, sms, s);
+  if (T > 16 || SPILL)
+    return launch_main<2, 256, SPILL>(e, d, mk, ew, dw, pk, o, spill, probe,
+                                      B, T, scale, drop, sms, s);
+  return launch_main<1, 256, SPILL>(e, d, mk, ew, dw, pk, o, spill, probe,
+                                    B, T, scale, drop, sms, s);
+}
 
-  // ---- decoder: one query against H2 ----
-  matmul<BF16>(X, D, T, D, dw.wqkv + D, D3, dw.vecs + D, 2 * D, QKV + D, LQ,
-               false, true);
-  matmul<BF16>(d0, D, 1, D, dw.wqkv, D3, dw.vecs, D, qd, D, false, true);
-  __syncthreads();
+// Workspace (floats): the forward's weight fragments, then, when the
+// activations spill, one slice per block.
+struct Plan {
+  size_t spill, total;
+  bool spill_acts;
+};
 
-  for (int idx = threadIdx.x; idx < H * T; idx += blockDim.x) {
-    const int h = idx / T;
-    const int k = idx % T;
-    const float* qp = qd + h * dh;
-    const float* kp = QKV + k * LQ + D + h * dh;
-    float s = 0.f;
-    for (int d = 0; d < dh; ++d) s = fmaf(qp[d], kp[d], s);
-    sd[idx] = km[k] > 0.f ? s * scale : kNegInf;
-  }
-  __syncthreads();
-  softmax_rows<BF16>(sd, H, T, nullptr, 1, drop, kSiteDecProbs, b);
-  __syncthreads();
-
-  for (int j = threadIdx.x; j < D; j += blockDim.x) {
-    const float* p = sd + (j / dh) * T;
-    const float* v = QKV + 2 * D + j;
-    float s = 0.f;
-    for (int k = 0; k < T; ++k) s = fmaf(p[k], v[k * LQ], s);
-    cd[j] = s;
-  }
-  __syncthreads();
-
-  add_layer_norm(cd, d0, 1, D, dw.vecs + 3 * D, dw.vecs + 4 * D);
-  __syncthreads();
-  matmul<BF16>(cd, D, 1, D, dw.w1, F, dw.b1, F, fd, F, true, false);
-  __syncthreads();
-  matmul<BF16>(fd, F, 1, F, dw.w2, D, dw.vecs + 7 * D, D, f2d, D, false,
-               false);
-  __syncthreads();
-  add_layer_norm(f2d, cd, 1, D, dw.vecs + 5 * D, dw.vecs + 6 * D);
-  __syncthreads();
-
-  for (int j = threadIdx.x; j < D; j += blockDim.x)
-    store(out + static_cast<size_t>(b) * D + j, f2d[j]);
+inline Plan make_plan(int B, int T, int sms) {
+  Plan P;
+  P.spill_acts = spills(T, smem_optin());
+  P.spill = (pack_floats(false) + 3) & ~static_cast<size_t>(3);
+  P.total = P.spill + (P.spill_acts
+                           ? static_cast<size_t>(spill_blocks(B, sms)) *
+                                 act_floats(T, block_threads(T), false)
+                           : 0);
+  return P;
 }
 
 template <typename TIn>
 cudaError_t launch(const void* enc, const void* dec, const void* mask,
-                   Weights ew, Weights dw, void* out, int B, int T, int D,
-                   int F, int H, float scale, Dropout drop,
+                   Weights ew, Weights dw, void* out, float* ws, Probe probe,
+                   int B, int T, float scale, Dropout drop, int sms,
                    cudaStream_t stream) {
-  const size_t bytes = smem_floats(T, D, F, H) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_block_fwd_kernel<TIn>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+  constexpr bool BF16 = !std::is_same<TIn, float>::value;
+  const Plan P = make_plan(B, T, sms);
+  Packs pk;
+  cudaError_t err =
+      pack_weights<BF16>(ew, dw, ws, false, nullptr, 0, pk, stream);
   if (err != cudaSuccess) return err;
-  fused_block_fwd_kernel<TIn><<<B, kThreads, bytes, stream>>>(
-      static_cast<const TIn*>(enc), static_cast<const TIn*>(dec),
-      static_cast<const float*>(mask), ew, dw, static_cast<TIn*>(out), T, D,
-      F, H, scale, drop);
-  return cudaGetLastError();
+  const TIn* e = static_cast<const TIn*>(enc);
+  const TIn* d = static_cast<const TIn*>(dec);
+  const float* mk = static_cast<const float*>(mask);
+  TIn* o = static_cast<TIn*>(out);
+  return P.spill_acts
+             ? launch_rows<true>(e, d, mk, ew, dw, pk, o, ws + P.spill, probe,
+                                 B, T, scale, drop, sms, stream)
+             : launch_rows<false>(e, d, mk, ew, dw, pk, o, nullptr, probe, B,
+                                  T, scale, drop, sms, stream);
 }
 
 Weights weights(const void* wqkv, const void* vecs, const void* w1,
@@ -273,26 +189,42 @@ Weights weights(const void* wqkv, const void* vecs, const void* w1,
 
 extern "C" {
 
-// Launches the kernel on `stream` (of the caller's current device); returns
-// the CUDA error code of the launch, 0 on success.  Does not synchronise.
+// Floats of the workspace that fused_block_fwd needs for (B, T) on a card
+// with `sms` SMs.
+long long fused_block_fwd_workspace(int B, int T, int sms) {
+  return static_cast<long long>(make_plan(B, T, sms).total);
+}
+
+// Launches the two kernels on `stream` (of the caller's current device);
+// returns the CUDA error code of the launch, 0 on success.  `workspace`
+// holds fused_block_fwd_workspace(B, T, sms) floats, 16-byte aligned.
+// Takes the library's D, F, H and any T >= 1.  `probe_enc` [B, T, F]
+// and `probe_dec` [B, F], when not null, get the FF pre-activations.  Does
+// not synchronise.
 int fused_block_fwd(const void* enc, const void* dec, const void* mask,
                     const void* e_wqkv, const void* e_vecs, const void* e_w1,
                     const void* e_b1, const void* e_w2, const void* d_wqkv,
                     const void* d_vecs, const void* d_w1, const void* d_b1,
-                    const void* d_w2, void* out, int B, int T, int D, int F,
-                    int H, float scale, int is_bf16, const void* seed,
-                    int train, int keep_thr, float drop_scale,
+                    const void* d_w2, void* out, void* workspace,
+                    void* probe_enc, void* probe_dec, int B, int T, int D,
+                    int F, int H, float scale, int is_bf16, const void* seed,
+                    int train, int keep_thr, float drop_scale, int sms,
                     void* stream) {
   if (B == 0) return 0;
+  if (D != kD || F != kF || H != kH || T < 1 || sms < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Dropout drop = make_dropout(seed, train, keep_thr, drop_scale);
   const Weights ew = weights(e_wqkv, e_vecs, e_w1, e_b1, e_w2);
   const Weights dw = weights(d_wqkv, d_vecs, d_w1, d_b1, d_w2);
+  const Probe probe{static_cast<float*>(probe_enc),
+                    static_cast<float*>(probe_dec)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* ws = static_cast<float*>(workspace);
   const cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(enc, dec, mask, ew, dw, out, B, T, D, F,
-                                      H, scale, drop, s)
-              : launch<float>(enc, dec, mask, ew, dw, out, B, T, D, F, H,
-                              scale, drop, s);
+      is_bf16 ? launch<__nv_bfloat16>(enc, dec, mask, ew, dw, out, ws, probe,
+                                      B, T, scale, drop, sms, s)
+              : launch<float>(enc, dec, mask, ew, dw, out, ws, probe, B, T,
+                              scale, drop, sms, s);
   return static_cast<int>(err);
 }
 

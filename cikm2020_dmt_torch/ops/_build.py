@@ -4,9 +4,12 @@ Each ``csrc/<name>.cu`` exposes a plain C interface: a launcher ``<name>``
 that returns a CUDA error code, and ``<name>_error_string``.  It is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library at first use,
 into ``cikm2020_dmt_torch/_build/`` (listed in ``.gitignore``), under a name
-keyed by a hash of the source, the shared headers and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.  The
-library is bound with ``ctypes``.
+keyed by a hash of the source, the shared headers, the flags and the
+compile-time defines, so an edited source is rebuilt and an unchanged one
+is loaded as it is.  A library is named by a *spec*: the source's name, or
+``(name, defines)`` with ``defines`` a tuple of ``"NAME=value"`` strings
+(the block kernels are built once for each width, ``-DBLOCK_D=...``).
+The library is bound with ``ctypes``.
 
 A missing ``nvcc`` or a failed build raises: there is no fallback.
 """
@@ -41,40 +44,55 @@ def nvcc_path() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def library_path(name: str) -> Path:
+def _spec(spec) -> tuple[str, tuple[str, ...]]:
+    """(name, defines) of a library spec."""
+    if isinstance(spec, str):
+        return spec, ()
+    name, defines = spec
+    return name, tuple(defines)
+
+
+def library_path(spec) -> Path:
+    name, defines = _spec(spec)
     # the shared headers are part of every kernel's key
     src = b"".join(p.read_bytes() for p in
                    [CSRC_DIR / f"{name}.cu"] + sorted(CSRC_DIR.glob("*.cuh")))
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{key}.so"
+    flags = " ".join(NVCC_FLAGS + tuple(f"-D{d}" for d in defines))
+    key = hashlib.sha256(src + flags.encode()).hexdigest()[:16]
+    tag = "".join(f"-{d.replace('=', '')}" for d in defines)
+    return BUILD_DIR / f"lib{name}{tag}-{key}.so"
 
 
-def build(names) -> dict[str, float]:
-    """Compile every kernel of ``names`` whose library is not built yet, one
-    ``nvcc`` process per source, all started together.  Returns the wall
-    seconds spent on each name (0.0 where the library was already there).
-    The compiler's output (``-Xptxas=-v``: registers, shared memory,
-    spills) is kept beside each library as ``<lib>.log``."""
+def build(specs) -> dict[str, float]:
+    """Compile every library of ``specs`` (names or ``(name, defines)``)
+    that is not built yet, one ``nvcc`` process per library, all started
+    together.  Returns the wall seconds spent on each, keyed by the
+    library's file stem (0.0 where it was already there).  The compiler's
+    output (``-Xptxas=-v``: registers, shared memory, spills) is kept beside
+    each library as ``<lib>.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     started = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
+    seconds = {}
+    for spec in specs:
+        name, defines = _spec(spec)
+        out = library_path(spec)
+        label = name + "".join(f"-{d.replace('=', '')}" for d in defines)
+        seconds[label] = 0.0
+        if out.exists() or label in started:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC_DIR / f"{name}.cu")]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *(f"-D{d}" for d in defines),
+               "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        started[name] = (proc, out, tmp, time.perf_counter())
-    seconds = {name: 0.0 for name in names}
+        started[label] = (proc, out, tmp, time.perf_counter())
     failures = []
-    for name, (proc, out, tmp, t0) in started.items():
+    for label, (proc, out, tmp, t0) in started.items():
         log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
+        seconds[label] = time.perf_counter() - t0
         out.with_suffix(".so.log").write_text(log)
         if proc.returncode != 0:
-            failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            failures.append(f"{label}: nvcc exited {proc.returncode}\n{log}")
             continue
         os.replace(tmp, out)
     if failures:
@@ -82,36 +100,39 @@ def build(names) -> dict[str, float]:
     return seconds
 
 
-def build_log(name: str) -> str:
-    log = library_path(name).with_suffix(".so.log")
+def build_log(spec) -> str:
+    log = library_path(spec).with_suffix(".so.log")
     return log.read_text() if log.exists() else ""
 
 
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """The kernel library ``name``, built first if needed."""
-    build([name])
-    return ctypes.CDLL(str(library_path(name)))
+def load(spec) -> ctypes.CDLL:
+    """The kernel library of ``spec``, built first if needed."""
+    build([spec])
+    return ctypes.CDLL(str(library_path(spec)))
 
 
 @functools.cache
-def bind(name: str, argtypes: tuple):
-    """The launcher ``name`` of kernel library ``name`` with its ctypes
-    argument types (``c_void_p`` for pointers and the stream)."""
-    lib = load(name)
-    fn = getattr(lib, name)
+def bind(spec, argtypes: tuple, fn_name: str | None = None):
+    """The function ``fn_name`` (default: the launcher, named as the
+    source) of library ``spec`` with its ctypes argument types
+    (``c_void_p`` for pointers and the stream); it returns a CUDA error
+    code, except ``*_workspace`` sizes, which return a 64-bit count."""
+    name, _ = _spec(spec)
+    fn = getattr(load(spec), fn_name or name)
     fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    err = getattr(lib, name + "_error_string")
-    err.argtypes = [ctypes.c_int]
-    err.restype = ctypes.c_char_p
+    fn.restype = (ctypes.c_longlong if (fn_name or "").endswith("_workspace")
+                  else ctypes.c_int)
     return fn
 
 
-def check(name: str, err: int, what: str) -> None:
+def check(spec, err: int, what: str) -> None:
     """Raises if a launch returned a CUDA error: a refused launch never
     runs, and a later synchronise would not report it."""
     if err != 0:
-        msg = getattr(load(name), name + "_error_string")(err).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg}) "
-                           f"at {what}")
+        name, _ = _spec(spec)
+        fn = getattr(load(spec), name + "_error_string")
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_char_p
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                           f"({fn(err).decode()}) at {what}")

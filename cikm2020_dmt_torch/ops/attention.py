@@ -23,8 +23,12 @@ plain PyTorch versions ``fused_attention_ref`` and
 ``fused_attention_bwd_ref``.  Neither falls back to the other.  The kernels
 replace the TPU kernels of ``cikm2020_dmt_tpu/ops/attention.py``:
 ``_attention_fwd_kernel`` (via ``_pallas_call_fwd``) and
-``_attention_bwd_kernel`` (via ``_pallas_call_bwd``).  They take
-1 <= Tq, Tk <= ``MAX_T`` and heads of at most ``MAX_DH`` columns.
+``_attention_bwd_kernel`` (via ``_pallas_call_bwd``).  They take any
+Tq, Tk >= 1 and any head width: up to 64 keys and query rows and 64
+columns a head they run their register tilings; past either the launchers
+take kernels of one warp a row, which process the keys in chunks with a
+running max and sum per row and the columns in slabs
+(``csrc/attention_rows.cuh``).
 
 Compute types follow the TPU kernel: products take their operands in the
 input type (float32 or bfloat16), every sum and the softmax run in
@@ -50,8 +54,6 @@ from . import _build
 KERNEL = "attention_fwd"
 BWD_KERNEL = "attention_bwd"
 NEG_INF = -(2.0 ** 32) + 1  # score of a masked key (the reference's pad)
-MAX_T = 64  # the kernels hold at most 64 keys of a row in registers
-MAX_DH = 64  # the backward's widest compile-time head width
 
 
 # ---------------------------------------------------------------------------
@@ -156,8 +158,9 @@ _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # q k v q_mask k_mask out | B Tq Tk D H | scale is_bf16 | stream
 _FWD_ARGS = tuple([_PTR] * 6 + [_I32] * 5 + [_F32, _I32, _PTR])
-# q k v q_mask k_mask do dq dk dv | B Tq Tk D H | scale is_bf16 | stream
-_BWD_ARGS = tuple([_PTR] * 9 + [_I32] * 5 + [_F32, _I32, _PTR])
+# q k v q_mask k_mask do dq dk dv workspace | B Tq Tk D H | scale is_bf16 |
+# stream
+_BWD_ARGS = tuple([_PTR] * 10 + [_I32] * 5 + [_F32, _I32, _PTR])
 
 
 def _check(name, q, k, v, q_mask, k_mask, num_heads, do=None):
@@ -181,14 +184,11 @@ def _check(name, q, k, v, q_mask, k_mask, num_heads, do=None):
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: q, k, v dtypes {q.dtype}, {k.dtype}, "
                         f"{v.dtype} differ")
-    if not (1 <= Tq <= MAX_T and 1 <= Tk <= MAX_T):
-        raise ValueError(f"{name}: Tq={Tq}, Tk={Tk}; the kernels take "
-                         f"1..{MAX_T}")
+    if Tq < 1 or Tk < 1:
+        raise ValueError(f"{name}: Tq={Tq}, Tk={Tk}; the kernels take at "
+                         "least one query row and one key")
     if num_heads < 1 or D % num_heads:
         raise ValueError(f"{name}: D={D}, num_heads={num_heads}")
-    if D // num_heads > MAX_DH:
-        raise ValueError(f"{name}: head width {D // num_heads}; the kernels "
-                         f"take at most {MAX_DH}")
     return B, Tq, Tk, D
 
 
@@ -237,11 +237,16 @@ def fused_attention_bwd(q, k, v, q_mask, k_mask, do, num_heads: int):
         return dq, dk, dv
     launch = _build.bind(BWD_KERNEL, _BWD_ARGS)
     with torch.cuda.device(q.device):
+        n = _build.bind(BWD_KERNEL, (_I32,) * 5, BWD_KERNEL + "_workspace")(
+            B, Tq, Tk, D, num_heads)
+        work = torch.empty((max(int(n), 1),), dtype=torch.float32,
+                           device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = launch(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
                      qm.data_ptr(), km.data_ptr(), dc.data_ptr(),
-                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Tq, Tk,
-                     D, num_heads, 1.0 / math.sqrt(D // num_heads),
+                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                     work.data_ptr(), B, Tq, Tk, D, num_heads,
+                     1.0 / math.sqrt(D // num_heads),
                      int(q.dtype == torch.bfloat16), stream)
     _build.check(BWD_KERNEL, err, f"B={B} Tq={Tq} Tk={Tk} D={D}")
     fused_attention_bwd.launches += 1

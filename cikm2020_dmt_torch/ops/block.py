@@ -42,7 +42,6 @@ gradients are float32, summed over the batch.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
@@ -278,25 +277,53 @@ def fused_block_bwd_ref(ew, dw, *, enc_in, dec_in, seq_mask, g,
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-# enc dec mask, 10 weights, out | B T D F H | scale is_bf16 | seed train
-# keep_thr drop_scale | stream
-_FWD_ARGS = tuple([_PTR] * 14 + [_I32] * 5
-                  + [_F32, _I32, _PTR, _I32, _I32, _F32, _PTR])
-# enc dec mask, 10 weights, g, d_enc d_dec, workspace, gw | B T D F H |
+# enc dec mask, 10 weights, out, workspace, probe_enc probe_dec | B T D F H |
 # scale is_bf16 | seed train keep_thr drop_scale | sms | stream
-_BWD_ARGS = tuple([_PTR] * 18 + [_I32] * 5
+_FWD_ARGS = tuple([_PTR] * 17 + [_I32] * 5
                   + [_F32, _I32, _PTR, _I32, _I32, _F32, _I32, _PTR])
-# the widths the backward kernel is built for (the model's), and its
-# longest sequence (an example's activations fill an SM's shared memory)
-BWD_D, BWD_F, BWD_HEADS, BWD_MAX_T = 80, 320, 4, 50
+# enc dec mask, 10 weights, g, d_enc d_dec, workspace, gw, probe_enc
+# probe_dec | B T D F H | scale is_bf16 | seed train keep_thr drop_scale |
+# sms | stream
+_BWD_ARGS = tuple([_PTR] * 20 + [_I32] * 5
+                  + [_F32, _I32, _PTR, _I32, _I32, _F32, _I32, _PTR])
+_WS_ARGS = (_I32, _I32, _I32)
+def library(kernel: str, D: int, F: int, H: int):
+    """The build spec of a block kernel at widths (D, F, H): one library
+    per width, built at its first use (``ops/_build.py``)."""
+    return kernel, (f"BLOCK_D={D}", f"BLOCK_F={F}", f"BLOCK_H={H}")
 
 
-@functools.cache
-def _bwd_workspace_fn():
-    fn = _build.load(BWD_KERNEL).fused_block_bwd_workspace
-    fn.argtypes = [_I32, _I32, _I32]
-    fn.restype = ctypes.c_longlong
-    return fn
+def max_act_floats(D: int, F: int, H: int, T: int) -> int:
+    """More floats than one example's activations take in either block
+    kernel (whose exact layout is ``act_floats`` in
+    ``csrc/block_fwd_tiles.cuh``): two [T, T] tiles, a dozen rows of the
+    padded D and two of the padded F a position, and as many again for the
+    decoder row and the sums.  Rows of D hold the heads at up to 3 zero
+    columns each, then up to 7 more; rows of F up to 7."""
+    dp, fp = D + 3 * H + 7, F + 7
+    return 2 * T * T + (T + 1) * (12 * dp + 2 * fp + 4 * H + 64) + 1024
+
+
+def check_widths(name: str, D: int, F: int, H: int, T: int) -> None:
+    """Raises, before any build, on a shape the block kernels cannot take,
+    with the reason."""
+    if H < 1 or D % H:
+        raise ValueError(f"{name}: D={D} is not a multiple of num_heads={H}")
+    n = max_act_floats(D, F, H, T)
+    if n >= 2 ** 31:
+        raise ValueError(f"{name}: one example's activations at D={D}, "
+                         f"F={F}, T={T} are {n} floats, past the kernels' "
+                         "32-bit indexing")
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _workspace(spec, fn_name, B, T, dev):
+    """The float32 workspace a block kernel asks for at (B, T)."""
+    n = _build.bind(spec, _WS_ARGS, fn_name)(B, T, _sms(dev))
+    return torch.empty((int(n),), dtype=torch.float32, device=dev)
 
 
 def _check(name, enc_in, dec_in, seq_mask, num_heads, ew, dw, seed, train,
@@ -315,12 +342,13 @@ def _check(name, enc_in, dec_in, seq_mask, num_heads, ew, dw, seed, train,
     if seq_mask.shape != (B, T):
         raise ValueError(f"{name}: seq_mask {tuple(seq_mask.shape)}, want "
                          f"({B}, {T})")
-    if T < 1 or T > 65535 or D % num_heads or D > 65535:
-        raise ValueError(f"{name}: T={T}, D={D}, num_heads={num_heads}")
+    if T < 1 or T > 65535 or D > 65535:
+        raise ValueError(f"{name}: T={T}, D={D}")
     F = ew[2].shape[1]
     if ew[0].shape != (D, 3 * D) or dw[0].shape != (D, 3 * D) \
             or dw[2].shape != (D, F):
         raise ValueError(f"{name}: block weights do not match D={D}")
+    check_widths(name, D, F, num_heads, T)
     drop = train and rate > 0.0
     if drop and not (0.0 < rate < 1.0):
         raise ValueError(f"{name}: dropout rate {rate}")
@@ -343,8 +371,13 @@ def _drop_args(train, rate, seed):
     return (None, 0, 1 << 24, 1.0)
 
 
+def _probe_args(probe):
+    return (None, None) if probe is None else tuple(
+        t.data_ptr() for t in probe)
+
+
 def _fwd_kernel(ew, dw, enc_in, dec_in, seq_mask, num_heads, train, rate,
-                seed):
+                seed, probe=None):
     B, T, D, F = _check("fused_block_fwd", enc_in, dec_in, seq_mask,
                         num_heads, ew, dw, seed, train, rate)
     dev = enc_in.device
@@ -354,30 +387,34 @@ def _fwd_kernel(ew, dw, enc_in, dec_in, seq_mask, num_heads, train, rate,
     out = torch.empty((B, D), dtype=enc_in.dtype, device=dev)
     if B == 0:
         return out
-    launch = _build.bind(KERNEL, _FWD_ARGS)
+    spec = library(KERNEL, D, F, num_heads)
     with torch.cuda.device(dev):
+        work = _workspace(spec, KERNEL + "_workspace", B, T, dev)
+        launch = _build.bind(spec, _FWD_ARGS)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(
             enc.data_ptr(), dec.data_ptr(), mask.data_ptr(),
             *(t.data_ptr() for t in ew), *(t.data_ptr() for t in dw),
-            out.data_ptr(), B, T, D, F, num_heads,
-            1.0 / math.sqrt(D // num_heads),
+            out.data_ptr(), work.data_ptr(), *_probe_args(probe), B, T, D, F,
+            num_heads, 1.0 / math.sqrt(D // num_heads),
             int(enc_in.dtype == torch.bfloat16),
-            *_drop_args(train, rate, seed), stream)
-    _build.check(KERNEL, err, f"B={B} T={T} D={D} F={F}")
+            *_drop_args(train, rate, seed), _sms(dev), stream)
+    _build.check(spec, err, f"B={B} T={T} D={D} F={F}")
     fused_encode_decode.launches += 1
     return out
 
 
 def fused_block_bwd(ew, dw, *, enc_in, dec_in, seq_mask, g, num_heads: int,
-                    train: bool = False, rate: float = 0.0, seed=None):
+                    train: bool = False, rate: float = 0.0, seed=None,
+                    probe=None):
     """The block's backward: ``fused_block_bwd_ref``'s contract.  CPU
     tensors take the plain version; CUDA tensors launch the kernel (three
     CUDA kernels: the weights packed into tensor-core fragments, the
     per-example backward, and the weight grads summed over all rows in
-    fixed chunks and a fixed order, so runs are deterministic); anything
-    else raises, including widths other than the model's (D=80, F=320, 4
-    heads) and sequences longer than ``BWD_MAX_T``."""
+    fixed chunks and a fixed order, so runs are deterministic), built for
+    the block's widths at their first use; anything else raises
+    (``check_widths``).  ``probe`` (two float32 tensors [B, T, F] and [B,
+    F]) gets the replay's FF pre-activations (``ff_preactivations``)."""
     if enc_in.device.type == "cpu":
         return fused_block_bwd_ref(ew, dw, enc_in=enc_in, dec_in=dec_in,
                                    seq_mask=seq_mask, g=g,
@@ -388,10 +425,6 @@ def fused_block_bwd(ew, dw, *, enc_in, dec_in, seq_mask, g, num_heads: int,
                          f"{enc_in.device}")
     B, T, D, F = _check("fused_block_bwd", enc_in, dec_in, seq_mask,
                         num_heads, ew, dw, seed, train, rate)
-    if (D, F, num_heads) != (BWD_D, BWD_F, BWD_HEADS) or T > BWD_MAX_T:
-        raise ValueError(f"fused_block_bwd: D={D}, F={F}, num_heads="
-                         f"{num_heads}, T={T}; the kernel takes D={BWD_D}, "
-                         f"F={BWD_F}, {BWD_HEADS} heads, T <= {BWD_MAX_T}")
     if g.shape != (B, D) or g.device != enc_in.device:
         raise ValueError(f"fused_block_bwd: g {tuple(g.shape)} on "
                          f"{g.device}, want ({B}, {D})")
@@ -408,21 +441,20 @@ def fused_block_bwd(ew, dw, *, enc_in, dec_in, seq_mask, g, num_heads: int,
     if B == 0:
         gw.zero_()
     else:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        spec = library(BWD_KERNEL, D, F, num_heads)
         with torch.cuda.device(dev):
-            work = torch.empty((int(_bwd_workspace_fn()(B, T, sms)),),
-                               dtype=torch.float32, device=dev)
-            launch = _build.bind(BWD_KERNEL, _BWD_ARGS)
+            work = _workspace(spec, BWD_KERNEL + "_workspace", B, T, dev)
+            launch = _build.bind(spec, _BWD_ARGS)
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = launch(
                 enc.data_ptr(), dec.data_ptr(), mask.data_ptr(),
                 *(t.data_ptr() for t in ew), *(t.data_ptr() for t in dw),
                 gg.data_ptr(), d_enc.data_ptr(), d_dec.data_ptr(),
-                work.data_ptr(), gw.data_ptr(), B, T, D, F, num_heads,
-                1.0 / math.sqrt(D // num_heads),
+                work.data_ptr(), gw.data_ptr(), *_probe_args(probe), B, T, D,
+                F, num_heads, 1.0 / math.sqrt(D // num_heads),
                 int(enc_in.dtype == torch.bfloat16),
-                *_drop_args(train, rate, seed), sms, stream)
-        _build.check(BWD_KERNEL, err, f"B={B} T={T} D={D} F={F}")
+                *_drop_args(train, rate, seed), _sms(dev), stream)
+        _build.check(spec, err, f"B={B} T={T} D={D} F={F}")
         fused_block_bwd.launches += 1
     shapes = [(D, 3 * D), (8, D), (D, F), (F,), (F, D)] * 2
     parts = torch.split(gw, sizes * 2)
@@ -430,6 +462,30 @@ def fused_block_bwd(ew, dw, *, enc_in, dec_in, seq_mask, g, num_heads: int,
 
 
 fused_block_bwd.launches = 0
+
+
+def ff_preactivations(ew, dw, *, enc_in, dec_in, seq_mask, num_heads: int,
+                      train: bool = False, rate: float = 0.0, seed=None):
+    """The FF pre-activations (h1 w1 + b1; encoder [B, T, F], decoder [B,
+    F], float32) as the forward kernel formed them and as the backward
+    kernel's replay formed them, on the card: ((enc, dec) of the forward,
+    (enc, dec) of the replay).  The two are the same bits when the replay
+    reproduces the forward, so every ReLU takes the same branch in both."""
+    B, T, D = enc_in.shape
+    F = ew[2].shape[1]
+
+    def probe():
+        return (torch.full((B, T, F), float("nan"), device=enc_in.device),
+                torch.full((B, F), float("nan"), device=enc_in.device))
+
+    fwd, bwd = probe(), probe()
+    kw = dict(enc_in=enc_in, dec_in=dec_in, seq_mask=seq_mask)
+    _fwd_kernel(ew, dw, enc_in, dec_in, seq_mask, num_heads, train, rate,
+                seed, probe=fwd)
+    g = torch.zeros((B, D), dtype=enc_in.dtype, device=enc_in.device)
+    fused_block_bwd(ew, dw, g=g, num_heads=num_heads, train=train, rate=rate,
+                    seed=seed, probe=bwd, **kw)
+    return fwd, bwd
 
 
 class _FusedBlock(torch.autograd.Function):
@@ -521,14 +577,13 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 
 
-def block_bwd_tc_bound_ms(B: int, T: int, D: int, F: int, dtype) -> float:
-    """Least ms of one backward launch's operations on the tensor cores:
-    float32 by the 3xTF32 split (three TF32 products for each, at 495
-    TFLOP/s), bfloat16 at 989 TFLOP/s.  Beside the float32 FMA bound
-    (``block_bwd_flops`` at 67 TFLOP/s) it says how far tensor cores could
-    take the kernel; it is not the kernel's bound, which counts the
-    function's float32 operations at their own rate."""
-    ops = block_bwd_flops(B, T, D, F)
+def block_tc_bound_ms(ops: int, dtype) -> float:
+    """Least ms of a block kernel's ``ops`` operations (``block_flops`` or
+    ``block_bwd_flops``) on the tensor cores: float32 by the 3xTF32 split
+    (three TF32 products for each, at 495 TFLOP/s), bfloat16 at 989
+    TFLOP/s.  Beside the float32 FMA bound (at 67 TFLOP/s) it says how far
+    tensor cores could take the kernel; it is not the kernel's bound, which
+    counts the function's float32 operations at their own rate."""
     if dtype == torch.bfloat16:
         return ops / PEAK_BF16_FLOPS * 1e3
     return 3 * ops / PEAK_TF32_FLOPS * 1e3

@@ -20,6 +20,8 @@ the flagship model's loss (``mmoe_transformer_unbias``) is ported.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from ..core.config import DMTConfig
@@ -68,6 +70,11 @@ class Trainer:
         if cfg.optimizer.lower() != "adam" or cfg.wnd_wd > 1e-5:
             raise ValueError("Trainer: only Adam without dense weight decay "
                              "is ported")
+        if cfg.grid_bf16 or os.environ.get("DMT_GRID_BF16", "0") == "1":
+            raise ValueError(
+                "Trainer: grid_bf16 (or DMT_GRID_BF16=1) is not ported; it "
+                "rounds the union grid of a float32 lazy table to bfloat16, "
+                "which would change the trained values")
         self.cfg = cfg
         self.model = build_model(cfg)
         self.lazy_plan = build_lazy_plan(cfg)

@@ -81,9 +81,13 @@ from cikm2020_dmt_torch.nn.transformer import transformer_init
 from cikm2020_dmt_torch.ops import block, _build
 torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda")
-_build.build(["fused_block_bwd"])
+# the width-keyed library of this tree, or the source's one library in
+# trees from before the block kernels took other widths
+spec = (block.library(block.BWD_KERNEL, 80, 320, 4)
+        if hasattr(block, "library") else "fused_block_bwd")
+_build.build([spec])
 out = {"ptxas": sorted({l.split(":", 1)[-1].strip() for l in
-                        _build.build_log("fused_block_bwd").splitlines()
+                        _build.build_log(spec).splitlines()
                         if "registers" in l or "spill" in l})}
 gen = torch.Generator(device=dev).manual_seed(0)
 seed = torch.tensor([3], dtype=torch.int32, device=dev)
@@ -130,8 +134,9 @@ def prepare(name: str, tree: str, root: str) -> subprocess.Popen:
     with open(path, "w") as f:
         f.write(cut(src, name))
     return subprocess.Popen(
-        [sys.executable, "-c", "from cikm2020_dmt_torch.ops import _build; "
-         "_build.build(['fused_block_bwd'])"], cwd=d,
+        [sys.executable, "-c", "from cikm2020_dmt_torch.ops import _build, "
+         "block; _build.build([block.library(block.BWD_KERNEL, 80, 320, 4) "
+         "if hasattr(block, 'library') else 'fused_block_bwd'])"], cwd=d,
         env=dict(os.environ, PYTHONPATH=d), stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
 

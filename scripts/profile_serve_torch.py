@@ -53,7 +53,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    _build.build([block.KERNEL])
+    _build.build([block.library(block.KERNEL, 80, 320, 4)])
     cfg = DMTConfig.from_ini(chip_smoke.CONF)
     params = build_model(cfg).init(
         torch.Generator(device=dev).manual_seed(chip_smoke.SEED))

@@ -90,7 +90,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    _build.build(chip_smoke.KERNELS)
+    _build.build(chip_smoke.build_specs())
     print(f"card: {torch.cuda.get_device_name(0)}")
     out = [profile_config("dmt", chip_smoke.CONF, dev)]
     torch.cuda.empty_cache()

@@ -5,11 +5,14 @@ from __future__ import annotations
 
 GROUPS = (
     ("fused_block_fwd", ("fused_block_fwd",)),
-    ("fused_block_bwd", ("block_bwd_kernel", "pack_kernel", "wgrad_kernel")),
+    ("fused_block_bwd", ("block_bwd_kernel", "wgrad_kernel")),
+    # the weight fragments, packed by both block kernels' calls
+    ("fused_block_pack", ("pack_kernel",)),
     ("sorted_segsum", ("segsum_",)),
     ("update_rows", ("update_rows_kernel",)),
-    ("attention_fwd", ("attention_fwd_kernel",)),
-    ("attention_bwd", ("attention_bwd_kernel",)),
+    ("attention_fwd", ("attention_fwd_kernel", "attention_fwd_rows")),
+    ("attention_bwd", ("attention_bwd_kernel", "attention_bwd_rows",
+                       "attention_bwd_cols")),
     ("matmul", ("gemm", "gemv", "cutlass", "matmul", "dot_kernel")),
     ("sort", ("sort", "radix", "scan")),
     ("gather_scatter", ("index", "gather", "scatter", "embedding")),

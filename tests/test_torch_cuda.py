@@ -300,13 +300,14 @@ def test_attention_backward_is_deterministic_on_card(dtype, cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bad", ["T", "dtype", "heads", "dh"])
 def test_attention_kernels_raise_on_what_they_do_not_take(bad, cuda_device):
-    """Keys or queries beyond 64, float16, heads that do not divide D, and
-    a head width beyond ``MAX_DH`` (D=80 in one head)."""
+    """No keys, float16, heads that do not divide D, and no heads: the
+    kernels take any Tq, Tk >= 1 and any head width, but not these."""
     from cikm2020_dmt_torch.ops import attention as att
-    T = 65 if bad == "T" else 10
     dt = torch.float16 if bad == "dtype" else torch.float32
-    H = {"heads": 3, "dh": 1}.get(bad, 4)
-    q, k, v, qm, km, do = _attention_case(T, T, dt, cuda_device, B=4)
+    H = {"heads": 3, "dh": 0}.get(bad, 4)
+    q, k, v, qm, km, do = _attention_case(10, 10, dt, cuda_device, B=4)
+    if bad == "T":
+        k, v, km = k[:, :0], v[:, :0], km[:, :0]
     with pytest.raises((ValueError, TypeError)):
         att.fused_attention(q, k, v, qm, km, H)
     with pytest.raises((ValueError, TypeError)):
@@ -499,12 +500,74 @@ def test_block_backward_repeats_bit_for_bit_on_card(T_, dtype, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bad", ["T", "heads"])
-def test_block_backward_raises_beyond_its_widths(bad, cuda_device):
-    """The kernel is built for the model's widths: more than 50 keys, or
-    other than 4 heads, raise before any launch."""
-    ew, dw, g, kw = _block_bwd_case(4, 51 if bad == "T" else 10,
+def test_block_backward_raises_beyond_its_widths(bad, cuda_device,
+                                                 monkeypatch):
+    """The kernels take every width whose D is a multiple of the heads and
+    every T whose activations the 32-bit indexing reaches: T=40,000 (3.2e9
+    floats an example), or heads that do not divide D, raise before any
+    build (``_build.build`` is not called)."""
+    from cikm2020_dmt_torch.ops import _build
+
+    def no_build(specs):
+        raise AssertionError(f"build called for {specs}")
+
+    ew, dw, g, kw = _block_bwd_case(4, 40000 if bad == "T" else 10,
                                     torch.float32, cuda_device, 0.0)
     if bad == "heads":
-        kw["num_heads"] = 2
-    with pytest.raises(ValueError):
+        kw["num_heads"] = 3
+    monkeypatch.setattr(_build, "build", no_build)
+    with pytest.raises(ValueError, match="fused_block_bwd"):
         block.fused_block_bwd(ew, dw, g=g, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Other widths, and the forward against the backward's replay
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D,F,H,T_", [(36, 100, 3, 7), (64, 256, 2, 60),
+                                      (80, 320, 4, 200), (36, 100, 3, 300)])
+def test_block_kernels_at_other_widths_on_card(D, F, H, T_, dtype,
+                                               cuda_device):
+    """Both block kernels at widths other than the model's (a head of 12
+    columns, F not a multiple of 8; two heads of 32 past 50 keys), at
+    T=200, whose activations spill into the workspace, and at T=300, past
+    the encoder attention's register tilings, against their plain versions
+    with chip_smoke's tolerances, dropout 0.1."""
+    from chip_smoke import check_block_width
+    check_block_width(D, F, H, T_, getattr(torch, dtype), cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Tq,Tk,H,dh", [(65, 65, 4, 20), (1, 200, 2, 72),
+                                        (200, 200, 2, 72), (10, 10, 1, 72)])
+def test_attention_kernels_past_the_tilings_on_card(Tq, Tk, H, dh, dtype,
+                                                    cuda_device):
+    """Both attention kernels past 64 keys and with heads of 72 columns
+    (the one-warp-a-row kernels) against their plain versions with the
+    main path's tolerances."""
+    from chip_smoke import check_attention_width
+    check_attention_width(Tq, Tk, H, dh, getattr(torch, dtype), cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("widths,T_", [((80, 320, 4), 1), ((80, 320, 4), 10),
+                                       ((80, 320, 4), 50), ((80, 320, 4), 55),
+                                       ((80, 320, 4), 128),
+                                       ((36, 100, 3), 7),
+                                       ((64, 256, 2), 60),
+                                       ((36, 100, 3), 300)])
+def test_forward_and_replay_preactivations_equal_on_card(widths, T_, dtype,
+                                                         cuda_device):
+    """The FF pre-activations the forward kernel formed and those the
+    backward's replay formed are the same bits (dropout 0.1), so each ReLU
+    takes in the backward the branch it took in the forward; also where
+    both kernels spill into their workspaces although the forward's own
+    activations would fit (T=55), where neither's fit (T=128) and past the
+    encoder attention's register tilings (T=300)."""
+    from chip_smoke import check_replay
+    check_replay(T_, getattr(torch, dtype), cuda_device, widths=widths)

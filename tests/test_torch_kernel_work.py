@@ -53,17 +53,30 @@ def _inputs(B, Tq, Tk, D, dtype=torch.float32, seed=0):
     return q, k, v, qm, km, do
 
 
-@pytest.mark.parametrize("D,H,ok", [(64, 1, True), (128, 2, True),
-                                    (80, 1, False), (160, 2, False)])
-def test_wrapper_takes_heads_up_to_max_dh(D, H, ok):
-    """The kernels take heads of at most MAX_DH = 64 columns: wider heads
-    raise in the wrappers' check."""
-    q, k, v, qm, km, do = _inputs(2, 10, 10, D)
-    if ok:
-        assert att._check("x", q, k, v, qm, km, H, do) == (2, 10, 10, D)
-    else:
-        with pytest.raises(ValueError, match="head width"):
-            att._check("x", q, k, v, qm, km, H, do)
+# the ids keep the test's names: the last field once said whether the
+# wrappers took the head width, and now they take every one
+@pytest.mark.parametrize("D,H", [
+    pytest.param(64, 1, id="64-1-True"), pytest.param(128, 2, id="128-2-True"),
+    pytest.param(80, 1, id="80-1-False"),
+    pytest.param(160, 2, id="160-2-False")])
+def test_wrapper_takes_heads_up_to_max_dh(D, H):
+    """The wrappers take heads of 64 columns (the register tilings) and
+    wider (the one-warp-a-row kernels, ``csrc/attention_rows.cuh``), and
+    the plain versions they are held to compute softmax attention there:
+    per head, against ``scaled_dot_product_attention`` with the masked
+    keys' score added, on rows with at least one key."""
+    q, k, v, qm, km, do = _inputs(12, 10, 10, D)
+    assert att._check("x", q, k, v, qm, km, H, do) == (12, 10, 10, D)
+    q, k, v, qm, km = (t.double() for t in (q, k, v, qm, km))
+    got = att.fused_attention_ref(q, k, v, qm, km, H)
+    split = [t.view(12, 10, H, D // H).transpose(1, 2) for t in (q, k, v)]
+    bias = ((1 - km) * att.NEG_INF)[:, None, None, :]
+    want = torch.nn.functional.scaled_dot_product_attention(
+        *split, attn_mask=bias).transpose(1, 2).reshape(12, 10, D)
+    live = km.sum(1) > 0
+    torch.testing.assert_close(got[live] * qm[live][..., None],
+                               want[live] * qm[live][..., None],
+                               rtol=1e-10, atol=1e-12)
 
 
 @pytest.mark.parametrize("Tq,Tk", [(50, 50), (1, 50), (10, 10), (1, 10)])
@@ -95,8 +108,24 @@ def test_block_bwd_tensor_core_bound(T, fma_ms, tf32_ms, bf16_ms):
     from cikm2020_dmt_torch.ops import block
     ops = block.block_bwd_flops(2048, T, 80, 320)
     assert round(ops / 67e12 * 1e3, 4) == fma_ms
-    got = block.block_bwd_tc_bound_ms(2048, T, 80, 320, torch.float32)
+    got = block.block_tc_bound_ms(ops, torch.float32)
     assert round(got, 4) == tf32_ms
-    assert round(block.block_bwd_tc_bound_ms(2048, T, 80, 320,
-                                             torch.bfloat16), 4) == bf16_ms
     assert got == pytest.approx(3 * ops / 495e12 * 1e3)
+    assert round(block.block_tc_bound_ms(ops, torch.bfloat16), 4) == bf16_ms
+
+
+@pytest.mark.parametrize("B,T,fma_ms,tf32_ms,bf16_ms", [
+    (300, 50, 0.0414, 0.0168, 0.0028),
+    (300, 10, 0.0081, 0.0033, 0.0006),
+    (2048, 50, 0.2828, 0.1148, 0.0192),
+    (2048, 10, 0.0555, 0.0225, 0.0038),
+])
+def test_block_fwd_tensor_core_bound(B, T, fma_ms, tf32_ms, bf16_ms):
+    """The block forward's bounds at the serving (B=300) and training
+    (B=2048) shapes, as the backward's: over the float32 FMA peak, the
+    3xTF32 split over the TF32 tensor-core peak, and the bfloat16 peak."""
+    from cikm2020_dmt_torch.ops import block
+    ops = block.block_flops(B, T, 80, 320)
+    assert round(ops / 67e12 * 1e3, 4) == fma_ms
+    assert round(block.block_tc_bound_ms(ops, torch.float32), 4) == tf32_ms
+    assert round(block.block_tc_bound_ms(ops, torch.bfloat16), 4) == bf16_ms
