@@ -48,6 +48,25 @@ its time in PR 5, ``*_PR5_MS``).  Besides the paths' shapes:
   (``ATT_WIDTH_CASES``), each against its plain version with the main
   path's tolerances.
 
+The save mode of the fused block (``DMT_BLOCK_SAVE=1``; every phase above
+runs with it off): the forward kernel also writes the encoder's Q, K, V
+and attention context and the backward reads them instead of forming them
+again.  The phase checks
+
+- at T = 1, 10, 50, 55, 128 (B=300) and at widths (36, 100, 3, 7), and at
+  the flagship's training shapes (B=2048, T=50 and 10), float32 and
+  bfloat16, dropout 0.1: the forward's output and the backward's 12
+  outputs the same bits with the saved tensors as without them, and the
+  saved tensors within ``KERNEL_TOL`` of the plain version's
+  (``check_save``, ``save_block_phase``); at the training shapes, float32,
+  both kernels timed in either mode beside their save-mode bounds;
+- the flagship's ``Trainer`` at batch 2048 with the switch on: one step's
+  loss the same bits as without it, and every parameter leaf that two runs
+  without it produce bit-equal the same bits with it; per step exactly the
+  launches of the path, 3 forward and 3 backward of them in the save mode;
+  the step timed with the switch on and off in turns
+  (``save_train_phase``).
+
 The block kernels are built for each width the run uses; every library is
 built in one parallel batch first (``build_specs``).
 
@@ -57,13 +76,15 @@ backward and forward against SDPA and their time limits; the block
 backward's time limits) are printed and recorded under ``targets``, not
 enforced.  Before the last line it prints
 the card's name and power limit (``nvidia-smi``) and one JSON line
-``{"kernels": [...]}`` (seven kernels); the last line is ``{"ok": true,
+``{"kernels": [...]}`` (seven kernels; the two block kernels carry a
+``save`` record of the save mode); the last line is ``{"ok": true,
 "device": {...}}``.  Without a CUDA card it exits with code 2 and prints
 no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -413,10 +434,19 @@ def _counted():
 def reset_counts() -> None:
     for fn in _counted().values():
         fn.launches = 0
+        if hasattr(fn, "save_launches"):
+            fn.save_launches = 0
 
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in _counted().items()}
+
+
+def read_save_counts() -> dict:
+    """The block kernels' launches in the save mode, a part of their
+    launches (``read_counts``)."""
+    return {name: fn.save_launches for name, fn in _counted().items()
+            if hasattr(fn, "save_launches")}
 
 
 def synthetic_batch(cfg, n: int, seed: int, device) -> dict:
@@ -600,6 +630,28 @@ EXPECTED_PER_STEP = {
 }
 
 
+def timed_steps(tr, state, metrics, batches, gen, steps):
+    """``steps`` training steps over ``batches`` in turn, every launch
+    count set to 0 just before them and read just after: (state, metrics,
+    losses, counts, step ms by CUDA events, step ms by the host clock)."""
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    losses = []
+    for i in range(steps):
+        state, metrics, loss = tr.train_step(state, metrics,
+                                             batches[i % len(batches)], gen)
+        losses.append(loss)
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    counts = read_counts()
+    return (state, metrics, [float(x) for x in losses], counts,
+            start.elapsed_time(end) / steps, wall_ms)
+
+
 def train_phase(cfg, dev, expected: dict) -> dict:
     """The training path at batch 2048 with the config's dropout: 3
     warm-up steps, 10 timed steps (counted: exactly ``expected`` launches
@@ -624,24 +676,10 @@ def train_phase(cfg, dev, expected: dict) -> dict:
 
     # ---- the main path: 10 timed steps, counted ----
     steps = 10
-    reset_counts()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    losses = []
-    for i in range(steps):
-        state, metrics, loss = tr.train_step(state, metrics,
-                                             batches[i % 4], gen)
-        losses.append(loss)
-    end.record()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    counts = read_counts()
-    step_ms = start.elapsed_time(end) / steps
+    state, metrics, losses, counts, step_ms, wall_ms = timed_steps(
+        tr, state, metrics, batches, gen, steps)
     eps = TRAIN_BATCH / (step_ms / 1e3)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    losses = [float(x) for x in losses]
     log(f"training path: {steps} steps at batch {TRAIN_BATCH}, dropout "
         f"{cfg.transformer.dropout_rate}: launches {json.dumps(counts)}")
     log(f"training step: {step_ms:.3f} ms (CUDA events; host clock "
@@ -1117,6 +1155,269 @@ def widths_phase(dev) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             out["attention"].append(check_attention_width(Tq, Tk, H, dh,
                                                           dtype, dev))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The save mode (DMT_BLOCK_SAVE=1): the forward kernel also writes the
+# encoder's Q, K, V and attention context, and the backward reads them
+# instead of forming them again
+# ---------------------------------------------------------------------------
+
+# (D, F, heads, T) at B=300 where the save mode is held to the bits of the
+# replay: the forward-vs-replay cases at the model's widths and one other
+# width
+SAVE_CASES = tuple((80, 320, 4, T) for T in REPLAY_TS) + ((36, 100, 3, 7),)
+
+
+@contextlib.contextmanager
+def save_switch(on: bool):
+    """``DMT_BLOCK_SAVE`` set to 1 (or 0) inside the block, as it was
+    after."""
+    old = os.environ.get("DMT_BLOCK_SAVE")
+    os.environ["DMT_BLOCK_SAVE"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["DMT_BLOCK_SAVE"]
+        else:
+            os.environ["DMT_BLOCK_SAVE"] = old
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic implementations inside the block where it
+    has them (the scatter-adds of the embeddings' gradients, whose float
+    atomics otherwise sum in another order in each run), a warning where
+    it has none (the metrics' cumsum, which no parameter reads).  New
+    tensors are left unfilled, as they are outside the block."""
+    import torch.utils.deterministic as det
+
+    fill = det.fill_uninitialized_memory
+    det.fill_uninitialized_memory = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        det.fill_uninitialized_memory = fill
+
+
+def check_save_bits(where, ew, dw, g, kw):
+    """Both block kernels in either mode on the same inputs: the forward's
+    output and the backward's 12 outputs must be the same bits with the
+    saved tensors as without them, and the saved q, k, v and ctx_e within
+    ``KERNEL_TOL`` of the plain version's.  Raises on failure; returns
+    (the largest |saved - plain|, the saved tensors)."""
+    from cikm2020_dmt_torch.ops import block
+
+    args = (kw["enc_in"], kw["dec_in"], kw["seq_mask"], kw["num_heads"],
+            kw["train"], kw["rate"], kw["seed"])
+    out = block._fwd_kernel(ew, dw, *args)
+    out_s, saved = block._fwd_kernel(ew, dw, *args, save=True)
+    gb = _flat(block.fused_block_bwd(ew, dw, g=g, **kw))
+    gs = _flat(block.fused_block_bwd(ew, dw, g=g, saved=saved, **kw))
+    _, ref = block._fwd_ref(ew, dw, *args, save=True)
+    torch.cuda.synchronize()
+    differ = [int((a != b).sum()) for a, b in zip((out,) + gb, (out_s,) + gs)]
+    errs = [float((a.float() - b.float()).abs().max())
+            for a, b in zip(saved, ref)]
+    tol = KERNEL_TOL[kw["enc_in"].dtype]
+    log(f"save mode at {where}: elements that differ from the replay "
+        f"{differ[0]} (out) and {sum(differ[1:])} (backward, 12 outputs); "
+        f"saved q, k, v, ctx_e vs plain max |diff| "
+        + ", ".join(f"{e:.3e}" for e in errs) + f" (tol {tol})")
+    finite = all(torch.isfinite(t.float()).all() for t in saved)
+    if any(differ) or not finite or max(errs) > tol:
+        raise AssertionError(f"save mode at {where}: differ {differ}, saved "
+                             f"vs plain {errs}")
+    return max(errs), saved
+
+
+def check_save(D, F, H, T, dtype, dev, B=CANDIDATES) -> dict:
+    """``check_save_bits`` at widths (D, F, H) and length T, lengths
+    0..T, dropout 0.1 (``width_block_case``)."""
+    ew, dw, g, kw = width_block_case(D, F, H, T, dtype, dev, B, seed=T)
+    dname = str(dtype).split(".")[-1]
+    err, _ = check_save_bits(f"D={D} F={F} H={H} T={T} B={B} {dname}", ew,
+                             dw, g, kw)
+    return {"D": D, "F": F, "H": H, "T": T, "B": B, "dtype": dname,
+            "bit_equal": True, "saved_max_abs_err": err}
+
+
+def save_block_phase(params, dev) -> tuple[dict, dict]:
+    """The save mode at the flagship's training shapes (B=2048, T=50 and
+    10, float32 and bfloat16, dropout 0.1, lengths 0..T; the trained
+    weights): ``check_save_bits``, then, in float32, both kernels timed in
+    either mode in turns (off, on, on, off) beside their save-mode bounds.
+    Returns the forward's and the backward's ``save`` records (without
+    launches)."""
+    from cikm2020_dmt_torch.ops import block
+
+    kgen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    seed = torch.tensor([SEED + 9], dtype=torch.int32, device=dev)
+    fwd_shapes, bwd_shapes = [], []
+    err = 0.0
+    for T, p in ((50, params["trans"]["seq0"]), (10, params["trans"]["seq2"])):
+        ew, dw = block.pack_weights(p["enc"][0]), block.pack_weights(p["dec"][0])
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            kw = block_inputs(T, dtype, kgen, dev, B=TRAIN_BATCH)
+            kw.update(train=True, rate=DROPOUT, seed=seed)
+            g = torch.randn(TRAIN_BATCH, 80, generator=kgen, device=dev
+                            ).to(dtype)
+            e, saved = check_save_bits(f"B={TRAIN_BATCH} T={T} {dname}", ew,
+                                       dw, g, kw)
+            err = max(err, e)
+            if dtype != torch.float32:
+                continue
+            args = (kw["enc_in"], kw["dec_in"], kw["seq_mask"], 4, True,
+                    DROPOUT, seed)
+            f = {s: lambda s=s: block._fwd_kernel(ew, dw, *args, save=s)
+                 for s in (False, True)}
+            b = {False: lambda: block.fused_block_bwd(ew, dw, g=g, **kw),
+                 True: lambda: block.fused_block_bwd(ew, dw, g=g,
+                                                     saved=saved, **kw)}
+            ms = {(k, s): [] for k in "fb" for s in (False, True)}
+            for s in (False, True, True, False):
+                ms[("f", s)].append(cuda_ms(f[s], 10))
+                ms[("b", s)].append(cuda_ms(b[s], 5, warmup=1))
+            per = 2 if T == 50 else 1
+            for shapes, k, ops, nbytes in (
+                    (fwd_shapes, "f", block.block_flops(TRAIN_BATCH, T, 80,
+                                                        320),
+                     block.block_bytes(TRAIN_BATCH, T, 80, 320, 4,
+                                       save=True)),
+                    (bwd_shapes, "b",
+                     block.block_bwd_flops(TRAIN_BATCH, T, 80, 320,
+                                           saved=True),
+                     block.block_bwd_bytes(TRAIN_BATCH, T, 80, 320, 4,
+                                           saved=True))):
+                bd = bound(ops, nbytes)
+                shapes.append({
+                    "B": TRAIN_BATCH, "T": T, "dtype": dname,
+                    "dropout": DROPOUT, "per_step": per,
+                    "ms": statistics.mean(ms[(k, True)]),
+                    "off_ms": statistics.mean(ms[(k, False)]),
+                    "readings": {"on": ms[(k, True)], "off": ms[(k, False)]},
+                    "bound_ms": bd[0], "bound_by": bd[1],
+                    "tc_bound_ms": block.block_tc_bound_ms(ops, dtype),
+                    "flop": ops, "bytes": nbytes})
+            fs, bs = fwd_shapes[-1], bwd_shapes[-1]
+            log(f"save mode B={TRAIN_BATCH} T={T} f32: forward "
+                f"{fs['ms']:.4f} ms (off {fs['off_ms']:.4f}; bound "
+                f"{fs['bound_ms']:.4f} {fs['bound_by']}, "
+                f"{fs['tc_bound_ms']:.4f} at the TF32 tensor-core peak for "
+                f"3xTF32); backward {bs['ms']:.4f} ms (off "
+                f"{bs['off_ms']:.4f}; bound {bs['bound_ms']:.4f} "
+                f"{bs['bound_by']}, {bs['tc_bound_ms']:.4f} at the TF32 "
+                f"tensor-core peak); readings on/off {bs['readings']}")
+
+    def record(shapes, what):
+        ops = sum(s["flop"] * s["per_step"] for s in shapes)
+        nbytes = sum(s["bytes"] * s["per_step"] for s in shapes)
+        bd = bound(ops, nbytes)
+        return {"what": what, "max_abs_err": err,
+                "ms": sum(s["ms"] * s["per_step"] for s in shapes),
+                "off_ms": sum(s["off_ms"] * s["per_step"] for s in shapes),
+                "bound_ms": bd[0], "bound_by": bd[1],
+                "tc_bound_ms": sum(s["tc_bound_ms"] * s["per_step"]
+                                   for s in shapes),
+                "tc_bound_note": TC_BOUND_NOTE,
+                "unit": "ms per training step: 2 launches at T=50 + 1 at "
+                        "T=10, B=2048, f32, dropout 0.1; off_ms the same "
+                        "launches without the save mode, timed in turns",
+                "shapes": shapes}
+
+    return (record(fwd_shapes, "writes the encoder's q, k, v and ctx_e; "
+                               "max_abs_err: saved tensors vs plain"),
+            record(bwd_shapes, "reads them instead of replaying the "
+                               "encoder's projection and attention"))
+
+
+def save_train_phase(tr, state, batches, dev, expected: dict) -> dict:
+    """The flagship's training path with ``DMT_BLOCK_SAVE=1``: one step
+    from one state, batch and dropout seed twice without the save mode and
+    once with it, with PyTorch's deterministic implementations on
+    (``deterministic``): its loss the same bits, and every parameter leaf
+    that the two runs without it produce bit-equal the same bits with it
+    (without them, a small table's gradient can sum in another order in
+    each run and agree by chance in two of three); then
+    10 steps in either mode in turns (off, on, on, off), counted: per step
+    exactly ``expected`` launches, of which 3 forward and 3 backward in
+    the save mode when it is on and none when it is off.  Returns the
+    numbers."""
+    from cikm2020_dmt_torch.metrics.streaming import task_metrics_init
+    from cikm2020_dmt_torch.nn.layers import tree_map
+
+    def one_step(save):
+        s = tree_map(lambda t: t.clone(), state)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+        reset_counts()
+        with save_switch(save), deterministic():
+            s1, _, loss = tr.train_step(s, task_metrics_init(dev),
+                                        batches[0], gen)
+        torch.cuda.synchronize()
+        return loss, dict(_leaves(s1["params"])), read_save_counts()
+
+    loss_a, pa, _ = one_step(False)
+    loss_b, pb, _ = one_step(False)
+    loss_s, ps, saves = one_step(True)
+    same = [k for k in pa if torch.equal(pa[k], pb[k])]
+    bad = [k for k in same if not torch.equal(ps[k], pa[k])]
+    log(f"save mode, one step at batch {TRAIN_BATCH}: loss {float(loss_s)!r}"
+        f" with it, {float(loss_a)!r} and {float(loss_b)!r} without; "
+        f"{len(same)} of {len(pa)} parameter leaves bit-equal over two runs "
+        f"without it, {len(same) - len(bad)} of those bit-equal with it; "
+        f"save-mode launches {json.dumps(saves)}")
+    if not torch.equal(loss_s, loss_a) or bad or saves != {
+            "fused_block_fwd": 3, "fused_block_bwd": 3}:
+        raise AssertionError(f"save mode step: loss {float(loss_s)!r} vs "
+                             f"{float(loss_a)!r}, leaves that differ {bad}, "
+                             f"save-mode launches {saves}")
+    n_leaves = len(pa)
+    del pa, pb, ps
+
+    # ---- the path, timed in turns, counted ----
+    steps = 10
+    metrics = task_metrics_init(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    with save_switch(True):  # warm up the allocator for the saved tensors
+        for i in range(2):
+            state, metrics, _ = tr.train_step(state, metrics, batches[i], gen)
+    readings = {"off": [], "on": []}
+    launches = {}
+    for save in (False, True, True, False):
+        with save_switch(save):
+            state, metrics, losses, counts, step_ms, _ = timed_steps(
+                tr, state, metrics, batches, gen, steps)
+            saves = read_save_counts()
+        want = {k: expected.get(k, 0) * steps for k in counts}
+        want_s = {k: (3 * steps if save else 0) for k in saves}
+        mode = "on" if save else "off"
+        log(f"training path, save mode {mode}: {steps} steps, launches "
+            f"{json.dumps(counts)}, in the save mode {json.dumps(saves)}; "
+            f"step {step_ms:.3f} ms")
+        if counts != want or saves != want_s or not np.isfinite(losses).all():
+            raise AssertionError(f"save mode {mode}: launches {counts} "
+                                 f"(want {want}), in the save mode {saves} "
+                                 f"(want {want_s}), losses {losses}")
+        readings[mode].append(step_ms)
+        for k, n in saves.items():
+            launches[k] = launches.get(k, 0) + n
+    out = {"step_ms": statistics.mean(readings["on"]),
+           "off_step_ms": statistics.mean(readings["off"]),
+           "readings": readings, "loss_bit_equal": True,
+           "leaves_bit_equal": len(same), "leaves": n_leaves,
+           "save_launches": launches}
+    out["examples_per_s"] = TRAIN_BATCH / (out["step_ms"] / 1e3)
+    out["off_examples_per_s"] = TRAIN_BATCH / (out["off_step_ms"] / 1e3)
+    log(f"training step at batch {TRAIN_BATCH}: save mode on "
+        f"{out['step_ms']:.3f} ms ({out['examples_per_s']:.1f} examples/s), "
+        f"off {out['off_step_ms']:.3f} ms "
+        f"({out['off_examples_per_s']:.1f} examples/s), CUDA events, two "
+        f"runs of {steps} steps each in turns")
     return out
 
 
@@ -1637,6 +1938,24 @@ def main() -> int:
                             train["batches"][0], counts, dev)
     rows = update_phase(train["state"], col, counts, dev)
     step_ms, eps = train["step_ms"], train["examples_per_s"]
+
+    # ---- the save mode (DMT_BLOCK_SAVE=1) of the fused block ----
+    t_s = time.perf_counter()
+    save_cases = [check_save(*c, dtype, dev) for c in SAVE_CASES
+                  for dtype in (torch.float32, torch.bfloat16)]
+    fwd_save, bwd_save = save_block_phase(train["state"]["params"], dev)
+    save_train = save_train_phase(train["trainer"], train["state"],
+                                  train["batches"], dev,
+                                  EXPECTED_PER_STEP["dmt"])
+    for rec, name in ((fwd_save, "fused_block_fwd"),
+                      (bwd_save, "fused_block_bwd")):
+        rec.update(launches=save_train["save_launches"][name],
+                   bit_equal=save_cases)
+    fwd["save"], bwd["save"] = fwd_save, bwd_save
+    log(f"save phase: training step {save_train['step_ms']:.3f} ms with "
+        f"the save mode, {save_train['off_step_ms']:.3f} ms without it in "
+        f"the same phase ({step_ms:.3f} ms in the training phase); wall "
+        f"{time.perf_counter() - t_s:.1f}s")
     p50 = serve["p50"]
     del train, col, serve
     torch.cuda.empty_cache()
@@ -1671,7 +1990,10 @@ def main() -> int:
         text=True, timeout=60).stdout.strip().splitlines()[0]
     log(f"dmt: request p50 {p50:.3f} ms; training step "
         f"{step_ms:.3f} ms, {eps:.1f} examples/s at batch {TRAIN_BATCH}; "
-        f"wall {t_flag:.1f}s")
+        f"with DMT_BLOCK_SAVE=1 {save_train['step_ms']:.3f} ms, "
+        f"{save_train['examples_per_s']:.1f} examples/s (without it in the "
+        f"same phase {save_train['off_step_ms']:.3f} ms); wall "
+        f"{t_flag:.1f}s")
     log(f"dmt_2block: request p50 {serve2['p50']:.3f} ms, p90 "
         f"{serve2['p90']:.3f} ms; eval {ev['ms_per_batch']:.3f} ms per "
         f"batch of {ev['batch']}, {ev['examples_per_s']:.1f} examples/s; "

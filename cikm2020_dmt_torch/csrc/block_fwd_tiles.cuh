@@ -32,10 +32,16 @@
 // alike; chip_smoke.py `check_replay` holds the forward's and the
 // replay's FF pre-activations to the same bits on the card, at T = 1, 10
 // and 50 (no SPILL) and 55 and 128 (SPILL), in float32 and bfloat16.
+//
+// Save mode (`Saved`): the forward also writes the encoder's rounded Q, K,
+// V and its attention context, and the backward's replay reads them in
+// place of the projection and the attention; chip_smoke.py `check_save`
+// holds both kernels' outputs to the same bits in either mode.
 #pragma once
 
 #include <cfloat>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -731,6 +737,77 @@ struct Probe {
   float* enc;  // [B, T, F] encoder h1 w1 + b1
   float* dec;  // [B, F] decoder h1 w1 + b1
 };
+// The save mode of the TPU kernels (DMT_BLOCK_SAVE): the encoder's Q, K, V
+// as the projection rounded them (in the input type, which holds them
+// exactly) and its attention context (float32), [B, T, D] each in the
+// real layout.  Null pointers: the mode is off.  The forward writes them;
+// the backward, with `load`, reads them in place of the encoder's
+// projection and attention, which would form the same bits.
+struct Saved {
+  void* q;
+  void* k;
+  void* v;
+  float* ctx;
+  bool load;
+};
+
+template <bool BF16>
+using InType = typename std::conditional<BF16, __nv_bfloat16, float>::type;
+
+// The two copies between an example's activations and the saved tensors
+// run out of line: inlined into the replay, they took registers from it
+// and cost both kernels 1-2.5% with the mode off (scripts/compare_trees.py
+// on the H100); out of line, under 1%.
+
+// Example b's Q, K and V between the rows of QKV (q | k | v, padding 0)
+// and the saved tensors q, k, v: written from QKV, or, with LOAD, read
+// into it.  Consecutive threads take consecutive columns of a row of one
+// part.
+template <bool BF16, int NT, bool LOAD>
+__device__ __noinline__ void saved_qkv(float* QKV, int T, void* q, void* k,
+                                       void* v, size_t row0) {
+  using TIn = InType<BF16>;
+  for (int i = threadIdx.x; i < 3 * T * kDp; i += NT) {
+    const int p = i / (T * kDp);
+    const int w = i - p * T * kDp;
+    const int r = w / kDp;
+    const int c = p * kDp + (w - r * kDp);
+    const int rc = dmap(c);
+    if (!real<kMapD>(rc)) {
+      if (LOAD) QKV[r * LD3 + c] = 0.f;
+      continue;
+    }
+    TIn* at = static_cast<TIn*>(p == 0 ? q : p == 1 ? k : v) +
+              (row0 + r) * kD + (rc - p * kD);
+    if constexpr (LOAD) {
+      QKV[r * LD3 + c] = to_float(*at);
+    } else {
+      store(at, QKV[r * LD3 + c]);
+    }
+  }
+}
+
+// Example b's attention context between X1 (padding 0) and the saved
+// float32 tensor: written from X1, or, with LOAD, read into it.
+template <int NT, bool LOAD>
+__device__ __noinline__ void saved_ctx(float* X1, int T, float* ctx,
+                                       size_t row0) {
+  for (int i = threadIdx.x; i < T * kDp; i += NT) {
+    const int r = i / kDp;
+    const int c = i - r * kDp;
+    const int rc = dmap(c);
+    if (!real<kMapD>(rc)) {
+      if (LOAD) X1[i] = 0.f;
+      continue;
+    }
+    float* at = ctx + (row0 + r) * kD + rc;
+    if constexpr (LOAD) {
+      X1[i] = *at;
+    } else {
+      *at = X1[i];
+    }
+  }
+}
 
 // Loads example b: the dropped-out encoder rows and decoder row (internal
 // layout, padding 0) and the key mask; with `xe`/`xq` also keeps them.
@@ -767,14 +844,18 @@ __device__ __forceinline__ void load_example(
 // attention, LN1, FF, LN2 -> H2 in HG) and the decoder's one query against
 // H2 (Q, K/V, attention, LN1, FF, LN2): xhat2_d in x2d and, when `out`,
 // the block's output row there.  The backward keeps the weight-grad
-// operands in `kp`; the forward passes null pointers there.  What the backward reads afterwards: QKV, X1 (xhat1), H1 (h1), X2
-// (xhat2), HG, inv1, inv2, BIG's K/V_d, qd, pdd, dmd, x1d, hd, fd, x2d, st.
+// operands in `kp`; the forward passes null pointers there.  With `sv`
+// set, the forward writes the encoder's Q, K, V and attention context, and
+// the backward (sv.load) reads them instead of forming them.  What the
+// backward reads afterwards: QKV, X1 (xhat1), H1 (h1), X2 (xhat2), HG,
+// inv1, inv2, BIG's K/V_d, qd, pdd, dmd, x1d, hd, fd, x2d, st.
 template <int MGW, bool BF16, int NW, int NT, bool SPILL>
 __device__ __forceinline__ void replay(const Act& a, int T, const Packs& pk,
                                        const Weights& ew, const Weights& dw,
                                        float scale, const Dropout& drop,
                                        unsigned b, const Keep& kp,
-                                       const Probe& probe, float* out) {
+                                       const Probe& probe, const Saved& sv,
+                                       float* out) {
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -787,20 +868,31 @@ __device__ __forceinline__ void replay(const Act& a, int T, const Packs& pk,
   const size_t row0 = static_cast<size_t>(b) * T;
 
   // ---- encoder ----
-  mma_rows<MGW, BF16, NW, SPILL>(a.E0, LD1, T, kDp, pk.e_qkv, 3 * kDp,
-                                 [&](int r, int c, float v) {
-                                   QKV[r * LD3 + c] =
-                                       rnd<BF16>(v + vec_at<kMapD>(evec, c));
-                                 });
-  __syncthreads();
-  // past kRegT keys both kernels spill (an example's [T, T] tiles alone
-  // pass what a block can opt into), so only SPILL carries that path
-  if (SPILL && T > kRegT) {
-    enc_att_fwd_long<BF16, NW>(QKV, a.km, T, scale, drop, b, a.X1, a.SA);
+  if (sv.load) {
+    saved_qkv<BF16, NT, true>(QKV, T, sv.q, sv.k, sv.v, row0);
+    saved_ctx<NT, true>(a.X1, T, sv.ctx, row0);
+    __syncthreads();
   } else {
-    enc_att_fwd<BF16, NT>(QKV, a.km, T, scale, drop, b, a.X1);
+    mma_rows<MGW, BF16, NW, SPILL>(a.E0, LD1, T, kDp, pk.e_qkv, 3 * kDp,
+                                   [&](int r, int c, float v) {
+                                     QKV[r * LD3 + c] = rnd<BF16>(
+                                         v + vec_at<kMapD>(evec, c));
+                                   });
+    __syncthreads();
+    if (sv.q) saved_qkv<BF16, NT, false>(QKV, T, sv.q, sv.k, sv.v, row0);
+    // past kRegT keys both kernels spill (an example's [T, T] tiles alone
+    // pass what a block can opt into), so only SPILL carries that path
+    if (SPILL && T > kRegT) {
+      enc_att_fwd_long<BF16, NW>(QKV, a.km, T, scale, drop, b, a.X1, a.SA);
+    } else {
+      enc_att_fwd<BF16, NT>(QKV, a.km, T, scale, drop, b, a.X1);
+    }
+    __syncthreads();
+    if (sv.ctx) {
+      saved_ctx<NT, false>(a.X1, T, sv.ctx, row0);
+      __syncthreads();  // ln_rows overwrites X1
+    }
   }
-  __syncthreads();
   ln_rows<BF16, NW>(a.X1, kDp, a.E0, LD1, T, evec + 3 * kD, evec + 4 * kD,
                     a.inv1, a.H1, LD1, kp.xh ? kp.xh + row0 * kDp : nullptr);
   __syncthreads();

@@ -23,6 +23,16 @@
 // against ~33 KB moved, so bound by arithmetic (ops/block.py
 // `block_bwd_flops`; `block_tc_bound_ms` for the tensor cores).
 //
+// Save mode (the TPU kernel's `save=True`, switched on by DMT_BLOCK_SAVE):
+// given the encoder's Q, K, V and attention context that fused_block_fwd
+// saved, the replay loads them and skips the encoder's QKV projection and
+// attention forward (2.7 of the forward's 9.3 MFLOP an example at T=50),
+// for 3 x 2 or 4 bytes and 4 bytes more read a position and column.  It
+// still replays the encoder's FF + LN and the decoder, whose residuals the
+// backward reads, and the attention backward still forms P again from
+// QKV.  The saved values are the bits the replay would form, so both
+// modes give the same bits.
+//
 // Design: three kernels in one call.
 // 1. pack_kernel (block_fwd_tiles.cuh): the B operands of the per-example
 //    products (wqkv, w1, w2, their transposes, the decoder's K/V columns
@@ -356,8 +366,8 @@ __global__ void __launch_bounds__(NT, NT == 256 ? 2 : 1)
                      const float* __restrict__ mask, Weights ew, Weights dw,
                      Packs pk, const TIn* __restrict__ gout,
                      TIn* __restrict__ d_enc, TIn* __restrict__ d_dec,
-                     Scratch sc, float* spill, Probe probe, int B, int T,
-                     float scale, Dropout drop) {
+                     Scratch sc, float* spill, Probe probe, Saved sv, int B,
+                     int T, float scale, Dropout drop) {
   constexpr bool BF16 = !std::is_same<TIn, float>::value;
   constexpr int NW = NT / 32;
   extern __shared__ float4 smem4[];
@@ -405,7 +415,7 @@ __global__ void __launch_bounds__(NT, NT == 256 ? 2 : 1)
     if constexpr (run(kSkipReplay)) {
       replay<MGW, BF16, NW, NT, SPILL>(
           a, T, pk, ew, dw, scale, drop, b,
-          Keep{sc.xh, sc.xd, sc.xhd, sc.xfd}, probe, nullptr);
+          Keep{sc.xh, sc.xd, sc.xhd, sc.xfd}, probe, sv, nullptr);
     }
 
     if constexpr (run(kSkipDecBwd)) {
@@ -946,8 +956,8 @@ template <int MGW, int NT, bool SPILL, typename TIn>
 cudaError_t launch_main(const TIn* enc, const TIn* dec, const float* mask,
                         Weights ew, Weights dw, Packs pk, const TIn* g,
                         TIn* d_enc, TIn* d_dec, Scratch sc, float* spill,
-                        Probe probe, int B, int T, float scale, Dropout drop,
-                        int sms, cudaStream_t stream) {
+                        Probe probe, Saved sv, int B, int T, float scale,
+                        Dropout drop, int sms, cudaStream_t stream) {
   auto kernel = block_bwd_kernel<MGW, NT, SPILL, TIn>;
   size_t bytes = 0;
   int blocks = spill_blocks(B, sms);
@@ -965,8 +975,8 @@ cudaError_t launch_main(const TIn* enc, const TIn* dec, const float* mask,
     blocks = B < sms * per_sm ? B : sms * per_sm;
   }
   kernel<<<blocks, NT, bytes, stream>>>(enc, dec, mask, ew, dw, pk, g, d_enc,
-                                        d_dec, sc, spill, probe, B, T, scale,
-                                        drop);
+                                        d_dec, sc, spill, probe, sv, B, T,
+                                        scale, drop);
   return cudaGetLastError();
 }
 
@@ -974,28 +984,29 @@ template <bool SPILL, typename TIn>
 cudaError_t launch_rows(const TIn* e, const TIn* d, const float* mk,
                         Weights ew, Weights dw, Packs pk, const TIn* g,
                         TIn* de, TIn* dd, Scratch sc, float* spill,
-                        Probe probe, int B, int T, float scale, Dropout drop,
-                        int sms, cudaStream_t s) {
+                        Probe probe, Saved sv, int B, int T, float scale,
+                        Dropout drop, int sms, cudaStream_t s) {
   // 256 threads at T <= 32 (one row tile a task at T <= 16), 512 above:
   // both block kernels pick their threads from T alone (block_threads),
   // which fixes the slices of the one-row products
   if (T > 32)
     return launch_main<2, 512, SPILL>(e, d, mk, ew, dw, pk, g, de, dd, sc,
-                                      spill, probe, B, T, scale, drop, sms,
-                                      s);
+                                      spill, probe, sv, B, T, scale, drop,
+                                      sms, s);
   if (T > 16 || SPILL)
     return launch_main<2, 256, SPILL>(e, d, mk, ew, dw, pk, g, de, dd, sc,
-                                      spill, probe, B, T, scale, drop, sms,
-                                      s);
+                                      spill, probe, sv, B, T, scale, drop,
+                                      sms, s);
   return launch_main<1, 256, SPILL>(e, d, mk, ew, dw, pk, g, de, dd, sc,
-                                    spill, probe, B, T, scale, drop, sms, s);
+                                    spill, probe, sv, B, T, scale, drop, sms,
+                                    s);
 }
 
 template <typename TIn>
 cudaError_t launch(const void* enc, const void* dec, const void* mask,
                    Weights ew, Weights dw, const void* g, void* d_enc,
-                   void* d_dec, float* ws, float* gw, Probe probe, int B,
-                   int T, float scale, Dropout drop, int sms,
+                   void* d_dec, float* ws, float* gw, Probe probe, Saved sv,
+                   int B, int T, float scale, Dropout drop, int sms,
                    cudaStream_t stream) {
   constexpr bool BF16 = !std::is_same<TIn, float>::value;
   const Plan P = make_plan(B, T, sms);
@@ -1017,10 +1028,10 @@ cudaError_t launch(const void* enc, const void* dec, const void* mask,
   TIn* dd = static_cast<TIn*>(d_dec);
   err = P.spill_acts
             ? launch_rows<true>(e, d, mk, ew, dw, pk, gg, de, dd, sc,
-                                ws + P.spill, probe, B, T, scale, drop, sms,
-                                stream)
+                                ws + P.spill, probe, sv, B, T, scale, drop,
+                                sms, stream)
             : launch_rows<false>(e, d, mk, ew, dw, pk, gg, de, dd, sc,
-                                 nullptr, probe, B, T, scale, drop, sms,
+                                 nullptr, probe, sv, B, T, scale, drop, sms,
                                  stream);
   if (err != cudaSuccess) return err;
   if constexpr (!run(kSkipWgrad)) return cudaSuccess;
@@ -1095,33 +1106,45 @@ long long fused_block_bwd_workspace(int B, int T, int sms) {
 // 16-byte aligned; `gw` the 2 x kSub float32 weight grads.  Takes the
 // library's D, F, H and any T >= 1.  `probe_enc` [B, T, F] and
 // `probe_dec` [B, F], when not null, get the replay's FF pre-activations.
-// Does not synchronise.
+// `saved_q`, `saved_k`, `saved_v` (the input type) and `saved_ctx`
+// (float32), [B, T, D] each, when not null, are what fused_block_fwd wrote
+// in its save mode (all four or none): the replay reads them instead of
+// forming the encoder's Q, K, V and attention context.  Does not
+// synchronise.
 int fused_block_bwd(const void* enc, const void* dec, const void* mask,
                     const void* e_wqkv, const void* e_vecs, const void* e_w1,
                     const void* e_b1, const void* e_w2, const void* d_wqkv,
                     const void* d_vecs, const void* d_w1, const void* d_b1,
                     const void* d_w2, const void* g, void* d_enc, void* d_dec,
                     void* workspace, void* gw, void* probe_enc,
-                    void* probe_dec, int B, int T, int D, int F, int H,
-                    float scale, int is_bf16, const void* seed, int train,
-                    int keep_thr, float drop_scale, int sms, void* stream) {
+                    void* probe_dec, const void* saved_q, const void* saved_k,
+                    const void* saved_v, const void* saved_ctx, int B, int T,
+                    int D, int F, int H, float scale, int is_bf16,
+                    const void* seed, int train, int keep_thr,
+                    float drop_scale, int sms, void* stream) {
   if (B == 0) return 0;
-  if (D != kD || F != kF || H != kH || T < 1 || sms < 1)
+  const bool some = saved_q || saved_k || saved_v || saved_ctx;
+  const bool all = saved_q && saved_k && saved_v && saved_ctx;
+  if (D != kD || F != kF || H != kH || T < 1 || sms < 1 || some != all)
     return static_cast<int>(cudaErrorInvalidValue);
   const Weights ew = weights(e_wqkv, e_vecs, e_w1, e_b1, e_w2);
   const Weights dw = weights(d_wqkv, d_vecs, d_w1, d_b1, d_w2);
   const Dropout drop = make_dropout(seed, train, keep_thr, drop_scale);
   const Probe probe{static_cast<float*>(probe_enc),
                     static_cast<float*>(probe_dec)};
+  // read only: the replay loads them (Saved::load)
+  const Saved sv{const_cast<void*>(saved_q), const_cast<void*>(saved_k),
+                 const_cast<void*>(saved_v),
+                 static_cast<float*>(const_cast<void*>(saved_ctx)), some};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* ws = static_cast<float*>(workspace);
   float* out = static_cast<float*>(gw);
   const cudaError_t err =
       is_bf16 ? launch<__nv_bfloat16>(enc, dec, mask, ew, dw, g, d_enc, d_dec,
-                                      ws, out, probe, B, T, scale, drop, sms,
-                                      s)
+                                      ws, out, probe, sv, B, T, scale, drop,
+                                      sms, s)
               : launch<float>(enc, dec, mask, ew, dw, g, d_enc, d_dec, ws,
-                              out, probe, B, T, scale, drop, sms, s);
+                              out, probe, sv, B, T, scale, drop, sms, s);
   return static_cast<int>(err);
 }
 

@@ -50,9 +50,13 @@
 // pass for bfloat16 operands, which TF32 holds exactly); attention on the
 // FMA units, a query row to a group of lanes holding its keys in
 // registers; the decoder's one-row products split K over all threads and
-// add the slices in a fixed order.  It writes only out [B, D] (and, when
-// asked, the FF pre-activations, for the check that the backward's replay
-// reproduces them).
+// add the slices in a fixed order.  It writes out [B, D] and, when asked,
+// the FF pre-activations (for the check that the backward's replay
+// reproduces them) and, in the save mode of the TPU kernel
+// (DMT_BLOCK_SAVE), the encoder's Q, K, V in the input type and its
+// attention context in float32, [B, T, D] each, which the backward then
+// reads instead of forming them again: 3 x 2 or 4 bytes and 4 bytes more
+// written a position and column (131 MB in float32 at B=2048, T=50).
 
 #include <type_traits>
 
@@ -68,7 +72,7 @@ __global__ void __launch_bounds__(NT, NT == 256 ? 2 : 1)
                            const TIn* __restrict__ dec,
                            const float* __restrict__ mask, Weights ew,
                            Weights dw, Packs pk, TIn* __restrict__ out,
-                           float* spill, Probe probe, int B, int T,
+                           float* spill, Probe probe, Saved sv, int B, int T,
                            float scale, Dropout drop) {
   constexpr bool BF16 = !std::is_same<TIn, float>::value;
   constexpr int NW = NT / 32;
@@ -84,7 +88,7 @@ __global__ void __launch_bounds__(NT, NT == 256 ? 2 : 1)
     load_example<BF16, NT>(a, enc, dec, mask, T, b, drop, nullptr, nullptr);
     __syncthreads();
     replay<MGW, BF16, NW, NT, SPILL>(a, T, pk, ew, dw, scale, drop, b, none,
-                                     probe, a.gd);
+                                     probe, sv, a.gd);
     for (int j = threadIdx.x; j < kDp; j += NT) {
       const int rj = dmap(j);
       if (real<kMapD>(rj)) store(out + static_cast<size_t>(b) * kD + rj, a.gd[j]);
@@ -96,8 +100,9 @@ __global__ void __launch_bounds__(NT, NT == 256 ? 2 : 1)
 template <int MGW, int NT, bool SPILL, typename TIn>
 cudaError_t launch_main(const TIn* enc, const TIn* dec, const float* mask,
                         Weights ew, Weights dw, Packs pk, TIn* out,
-                        float* spill, Probe probe, int B, int T, float scale,
-                        Dropout drop, int sms, cudaStream_t stream) {
+                        float* spill, Probe probe, Saved sv, int B, int T,
+                        float scale, Dropout drop, int sms,
+                        cudaStream_t stream) {
   auto kernel = fused_block_fwd_kernel<MGW, NT, SPILL, TIn>;
   size_t bytes = 0;
   int blocks = spill_blocks(B, sms);
@@ -115,7 +120,7 @@ cudaError_t launch_main(const TIn* enc, const TIn* dec, const float* mask,
     blocks = B < sms * per_sm ? B : sms * per_sm;
   }
   kernel<<<blocks, NT, bytes, stream>>>(enc, dec, mask, ew, dw, pk, out,
-                                        spill, probe, B, T, scale, drop);
+                                        spill, probe, sv, B, T, scale, drop);
   return cudaGetLastError();
 }
 
@@ -125,16 +130,16 @@ cudaError_t launch_main(const TIn* enc, const TIn* dec, const float* mask,
 template <bool SPILL, typename TIn>
 cudaError_t launch_rows(const TIn* e, const TIn* d, const float* mk,
                         Weights ew, Weights dw, Packs pk, TIn* o,
-                        float* spill, Probe probe, int B, int T, float scale,
-                        Dropout drop, int sms, cudaStream_t s) {
+                        float* spill, Probe probe, Saved sv, int B, int T,
+                        float scale, Dropout drop, int sms, cudaStream_t s) {
   if (T > 32)
     return launch_main<2, 512, SPILL>(e, d, mk, ew, dw, pk, o, spill, probe,
-                                      B, T, scale, drop, sms, s);
+                                      sv, B, T, scale, drop, sms, s);
   if (T > 16 || SPILL)
     return launch_main<2, 256, SPILL>(e, d, mk, ew, dw, pk, o, spill, probe,
-                                      B, T, scale, drop, sms, s);
+                                      sv, B, T, scale, drop, sms, s);
   return launch_main<1, 256, SPILL>(e, d, mk, ew, dw, pk, o, spill, probe,
-                                    B, T, scale, drop, sms, s);
+                                    sv, B, T, scale, drop, sms, s);
 }
 
 // Workspace (floats): the forward's weight fragments, then, when the
@@ -158,7 +163,7 @@ inline Plan make_plan(int B, int T, int sms) {
 template <typename TIn>
 cudaError_t launch(const void* enc, const void* dec, const void* mask,
                    Weights ew, Weights dw, void* out, float* ws, Probe probe,
-                   int B, int T, float scale, Dropout drop, int sms,
+                   Saved sv, int B, int T, float scale, Dropout drop, int sms,
                    cudaStream_t stream) {
   constexpr bool BF16 = !std::is_same<TIn, float>::value;
   const Plan P = make_plan(B, T, sms);
@@ -172,9 +177,9 @@ cudaError_t launch(const void* enc, const void* dec, const void* mask,
   TIn* o = static_cast<TIn*>(out);
   return P.spill_acts
              ? launch_rows<true>(e, d, mk, ew, dw, pk, o, ws + P.spill, probe,
-                                 B, T, scale, drop, sms, stream)
-             : launch_rows<false>(e, d, mk, ew, dw, pk, o, nullptr, probe, B,
-                                  T, scale, drop, sms, stream);
+                                 sv, B, T, scale, drop, sms, stream)
+             : launch_rows<false>(e, d, mk, ew, dw, pk, o, nullptr, probe, sv,
+                                  B, T, scale, drop, sms, stream);
 }
 
 Weights weights(const void* wqkv, const void* vecs, const void* w1,
@@ -199,32 +204,39 @@ long long fused_block_fwd_workspace(int B, int T, int sms) {
 // returns the CUDA error code of the launch, 0 on success.  `workspace`
 // holds fused_block_fwd_workspace(B, T, sms) floats, 16-byte aligned.
 // Takes the library's D, F, H and any T >= 1.  `probe_enc` [B, T, F]
-// and `probe_dec` [B, F], when not null, get the FF pre-activations.  Does
-// not synchronise.
+// and `probe_dec` [B, F], when not null, get the FF pre-activations;
+// `save_q`, `save_k`, `save_v` (the input type) and `save_ctx` (float32),
+// [B, T, D] each, when not null, the encoder's Q, K, V and attention
+// context (the save mode: all four or none).  Does not synchronise.
 int fused_block_fwd(const void* enc, const void* dec, const void* mask,
                     const void* e_wqkv, const void* e_vecs, const void* e_w1,
                     const void* e_b1, const void* e_w2, const void* d_wqkv,
                     const void* d_vecs, const void* d_w1, const void* d_b1,
                     const void* d_w2, void* out, void* workspace,
-                    void* probe_enc, void* probe_dec, int B, int T, int D,
-                    int F, int H, float scale, int is_bf16, const void* seed,
-                    int train, int keep_thr, float drop_scale, int sms,
-                    void* stream) {
+                    void* probe_enc, void* probe_dec, void* save_q,
+                    void* save_k, void* save_v, void* save_ctx, int B, int T,
+                    int D, int F, int H, float scale, int is_bf16,
+                    const void* seed, int train, int keep_thr,
+                    float drop_scale, int sms, void* stream) {
   if (B == 0) return 0;
-  if (D != kD || F != kF || H != kH || T < 1 || sms < 1)
+  const bool some = save_q || save_k || save_v || save_ctx;
+  const bool all = save_q && save_k && save_v && save_ctx;
+  if (D != kD || F != kF || H != kH || T < 1 || sms < 1 || some != all)
     return static_cast<int>(cudaErrorInvalidValue);
   const Dropout drop = make_dropout(seed, train, keep_thr, drop_scale);
   const Weights ew = weights(e_wqkv, e_vecs, e_w1, e_b1, e_w2);
   const Weights dw = weights(d_wqkv, d_vecs, d_w1, d_b1, d_w2);
   const Probe probe{static_cast<float*>(probe_enc),
                     static_cast<float*>(probe_dec)};
+  const Saved sv{save_q, save_k, save_v, static_cast<float*>(save_ctx),
+                 false};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* ws = static_cast<float*>(workspace);
   const cudaError_t err =
       is_bf16 ? launch<__nv_bfloat16>(enc, dec, mask, ew, dw, out, ws, probe,
-                                      B, T, scale, drop, sms, s)
-              : launch<float>(enc, dec, mask, ew, dw, out, ws, probe, B, T,
-                              scale, drop, sms, s);
+                                      sv, B, T, scale, drop, sms, s)
+              : launch<float>(enc, dec, mask, ew, dw, out, ws, probe, sv, B,
+                              T, scale, drop, sms, s);
   return static_cast<int>(err);
 }
 

@@ -37,12 +37,20 @@ Compute types follow the TPU kernel: with bfloat16 inputs every operand of
 every product is rounded to bfloat16 (weights included); sums, softmax and
 layer norm stay float32 and outputs are rounded to the input type.  Weight
 gradients are float32, summed over the batch.
+
+Save mode (``DMT_BLOCK_SAVE=1``, the TPU kernels' ``save=True``, read at
+each call of ``fused_encode_decode`` where a backward can follow): the
+forward also returns the encoder's Q, K, V (the input type, as the
+projection rounded them) and its attention context ctx_e (float32), [B, T,
+D] each, and the backward takes them (``saved``) instead of forming them
+again.  Both modes give the same bits.  Off by default.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import os
 
 import torch
 
@@ -170,20 +178,25 @@ def _ln_bwd(g, xhat, inv, gamma):
     return dx, _rows_sum(g * xhat), _rows_sum(g)
 
 
-def _sub_fwd(x, kv, km, qm, dmp, w, H, rnd):
+def _sub_fwd(x, kv, km, qm, dmp, w, H, rnd, saved=None):
     """Attention + FF sub-block; x [B, Tq, D] queries and residual, kv
-    [B, Tk, D] keys/values.  Returns (out, residuals)."""
+    [B, Tk, D] keys/values; ``saved`` (q, k, v, ctx), where given, stands
+    for the projections and the attention.  Returns (out, residuals,
+    ctx)."""
     wqkv, vecs, w1, b1, w2 = w
     D = x.shape[-1]
-    q = rnd(x) @ rnd(wqkv[:, :D]) + vecs[0]
-    k = rnd(kv) @ rnd(wqkv[:, D:2 * D]) + vecs[1]
-    v = rnd(kv) @ rnd(wqkv[:, 2 * D:]) + vecs[2]
-    ctx = attend(q, k, v, km, qm, dmp, H, rnd)
+    if saved is None:
+        q = rnd(x) @ rnd(wqkv[:, :D]) + vecs[0]
+        k = rnd(kv) @ rnd(wqkv[:, D:2 * D]) + vecs[1]
+        v = rnd(kv) @ rnd(wqkv[:, 2 * D:]) + vecs[2]
+        ctx = attend(q, k, v, km, qm, dmp, H, rnd)
+    else:
+        q, k, v, ctx = saved
     h1, xhat1, inv1 = _ln(ctx + x, vecs[3], vecs[4])
     f = torch.relu(rnd(h1) @ rnd(w1) + b1)
     f2 = rnd(f) @ rnd(w2) + vecs[7]
     out, xhat2, inv2 = _ln(f2 + h1, vecs[5], vecs[6])
-    return out, (q, k, v, h1, xhat1, inv1, f, xhat2, inv2)
+    return out, (q, k, v, h1, xhat1, inv1, f, xhat2, inv2), ctx
 
 
 def _tdot(a, b, rnd):
@@ -215,7 +228,11 @@ def _sub_bwd(g, x, kv, res, km, qm, dmp, w, H, rnd):
     return dx, dkv, (dwqkv, dvecs, dw1, _rows_sum(dfpre), dw2)
 
 
-def _replay(ew, dw, enc_in, dec_in, seq_mask, H, masks):
+def _replay(ew, dw, enc_in, dec_in, seq_mask, H, masks, saved=None):
+    """The forward with every residual: (e0, d0, H2, encoder residuals,
+    out, decoder residuals, key mask, rounding, ctx_e).  ``saved`` (the
+    encoder's q, k, v, ctx_e), where given, stands for the encoder's
+    projections and attention."""
     rnd = rounding(enc_in.dtype)
     dm_e, dm_d, dmp_e, dmp_d = masks
     km = seq_mask.float()
@@ -224,16 +241,27 @@ def _replay(ew, dw, enc_in, dec_in, seq_mask, H, masks):
     if dm_e is not None:
         e0, d0 = e0 * dm_e, d0 * dm_d
     d0 = d0[:, None, :]
-    h2, eres = _sub_fwd(e0, e0, km, km, dmp_e, ew, H, rnd)
-    out, dres = _sub_fwd(d0, h2, km, None, dmp_d, dw, H, rnd)
-    return e0, d0, h2, eres, out, dres, km, rnd
+    if saved is not None:
+        saved = tuple(wide(t) for t in saved)
+    h2, eres, ctx_e = _sub_fwd(e0, e0, km, km, dmp_e, ew, H, rnd, saved)
+    out, dres, _ = _sub_fwd(d0, h2, km, None, dmp_d, dw, H, rnd)
+    return e0, d0, h2, eres, out, dres, km, rnd, ctx_e
 
 
-def _fwd_ref(ew, dw, enc_in, dec_in, seq_mask, H, train, rate, seed):
+def _fwd_ref(ew, dw, enc_in, dec_in, seq_mask, H, train, rate, seed,
+             save=False):
+    """The forward's output [B, D]; with ``save``, (output, (q, k, v,
+    ctx_e)) as the forward kernel saves them: q, k, v rounded to the input
+    type, ctx_e float32."""
     B, T, D = enc_in.shape
     masks = _masks(B, T, D, H, train, rate, seed, enc_in.device)
-    out = _replay(ew, dw, enc_in, dec_in, seq_mask, H, masks)[4]
-    return out[:, 0, :].to(enc_in.dtype)
+    r = _replay(ew, dw, enc_in, dec_in, seq_mask, H, masks)
+    out = r[4][:, 0, :].to(enc_in.dtype)
+    if not save:
+        return out
+    q, k, v = r[3][:3]
+    return out, tuple(t.to(enc_in.dtype).contiguous() for t in (q, k, v)) + (
+        r[8].to(torch.float32).contiguous(),)
 
 
 def fused_encode_decode_ref(enc_params, dec_params, *, enc_in, dec_in,
@@ -247,18 +275,22 @@ def fused_encode_decode_ref(enc_params, dec_params, *, enc_in, dec_in,
 
 def fused_block_bwd_ref(ew, dw, *, enc_in, dec_in, seq_mask, g,
                         num_heads: int, train: bool = False,
-                        rate: float = 0.0, seed=None):
+                        rate: float = 0.0, seed=None, saved=None):
     """Plain PyTorch version of the backward kernel: replays the forward
     and chains the gradients as the TPU kernel ``_make_bwd_kernel`` does.
 
     ``ew``/``dw`` are ``pack_weights`` tuples, ``g`` [B, D] the output's
-    cotangent.  Returns (d_enc [B, T, D], d_dec [B, D], 10 float32 weight
-    grads in the ``pack_weights`` layout, encoder's then decoder's,
-    summed over the batch)."""
+    cotangent; ``saved``, where given, the forward's (q, k, v, ctx_e) of
+    the save mode, which stand for the encoder's projections and attention
+    in the replay (the same bits).  Returns (d_enc [B, T, D], d_dec [B,
+    D], 10 float32 weight grads in the ``pack_weights`` layout, encoder's
+    then decoder's, summed over the batch)."""
     B, T, D = enc_in.shape
+    if saved is not None:
+        _check_saved("fused_block_bwd", saved, enc_in)
     masks = _masks(B, T, D, num_heads, train, rate, seed, enc_in.device)
-    e0, d0, h2, eres, _, dres, km, rnd = _replay(
-        ew, dw, enc_in, dec_in, seq_mask, num_heads, masks)
+    e0, d0, h2, eres, _, dres, km, rnd, _ = _replay(
+        ew, dw, enc_in, dec_in, seq_mask, num_heads, masks, saved)
     dd0, dh2, gdw = _sub_bwd(wide(g)[:, None, :], d0, h2, dres, km, None,
                              masks[3], dw, num_heads, rnd)
     dx, dkv, gew = _sub_bwd(dh2, e0, e0, eres, km, km, masks[2], ew,
@@ -277,14 +309,15 @@ def fused_block_bwd_ref(ew, dw, *, enc_in, dec_in, seq_mask, g,
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-# enc dec mask, 10 weights, out, workspace, probe_enc probe_dec | B T D F H |
-# scale is_bf16 | seed train keep_thr drop_scale | sms | stream
-_FWD_ARGS = tuple([_PTR] * 17 + [_I32] * 5
+# enc dec mask, 10 weights, out, workspace, probe_enc probe_dec, save_q
+# save_k save_v save_ctx | B T D F H | scale is_bf16 | seed train keep_thr
+# drop_scale | sms | stream
+_FWD_ARGS = tuple([_PTR] * 21 + [_I32] * 5
                   + [_F32, _I32, _PTR, _I32, _I32, _F32, _I32, _PTR])
 # enc dec mask, 10 weights, g, d_enc d_dec, workspace, gw, probe_enc
-# probe_dec | B T D F H | scale is_bf16 | seed train keep_thr drop_scale |
-# sms | stream
-_BWD_ARGS = tuple([_PTR] * 20 + [_I32] * 5
+# probe_dec, saved_q saved_k saved_v saved_ctx | B T D F H | scale is_bf16
+# | seed train keep_thr drop_scale | sms | stream
+_BWD_ARGS = tuple([_PTR] * 24 + [_I32] * 5
                   + [_F32, _I32, _PTR, _I32, _I32, _F32, _I32, _PTR])
 _WS_ARGS = (_I32, _I32, _I32)
 def library(kernel: str, D: int, F: int, H: int):
@@ -376,8 +409,33 @@ def _probe_args(probe):
         t.data_ptr() for t in probe)
 
 
+def _saved_args(saved):
+    return (None,) * 4 if saved is None else tuple(
+        t.data_ptr() for t in saved)
+
+
+def _check_saved(name, saved, enc_in):
+    """Raises unless ``saved`` is the save mode's (q, k, v, ctx_e): [B, T,
+    D] each, contiguous, on enc_in's device, q, k and v in enc_in's dtype
+    and ctx_e float32."""
+    if len(saved) != 4:
+        raise ValueError(f"{name}: saved holds {len(saved)} tensors, want "
+                         "(q, k, v, ctx_e)")
+    want = tuple(enc_in.shape)
+    for what, t, dtype in zip(("q", "k", "v", "ctx_e"), saved,
+                              (enc_in.dtype,) * 3 + (torch.float32,)):
+        if (tuple(t.shape) != want or t.dtype != dtype
+                or t.device != enc_in.device or not t.is_contiguous()):
+            raise ValueError(
+                f"{name}: saved {what} {tuple(t.shape)} {t.dtype} on "
+                f"{t.device}, contiguous {t.is_contiguous()}; want {want} "
+                f"{dtype} on {enc_in.device}, contiguous")
+
+
 def _fwd_kernel(ew, dw, enc_in, dec_in, seq_mask, num_heads, train, rate,
-                seed, probe=None):
+                seed, probe=None, save=False):
+    """The forward kernel: out [B, D]; with ``save``, (out, (q, k, v,
+    ctx_e)), the save mode's outputs (``_fwd_ref``'s contract)."""
     B, T, D, F = _check("fused_block_fwd", enc_in, dec_in, seq_mask,
                         num_heads, ew, dw, seed, train, rate)
     dev = enc_in.device
@@ -385,8 +443,11 @@ def _fwd_kernel(ew, dw, enc_in, dec_in, seq_mask, num_heads, train, rate,
     dec = dec_in.contiguous()
     mask = seq_mask.to(torch.float32).contiguous()
     out = torch.empty((B, D), dtype=enc_in.dtype, device=dev)
+    saved = tuple(torch.empty((B, T, D), dtype=t, device=dev)
+                  for t in (enc_in.dtype,) * 3 + (torch.float32,)) \
+        if save else None
     if B == 0:
-        return out
+        return (out, saved) if save else out
     spec = library(KERNEL, D, F, num_heads)
     with torch.cuda.device(dev):
         work = _workspace(spec, KERNEL + "_workspace", B, T, dev)
@@ -395,31 +456,38 @@ def _fwd_kernel(ew, dw, enc_in, dec_in, seq_mask, num_heads, train, rate,
         err = launch(
             enc.data_ptr(), dec.data_ptr(), mask.data_ptr(),
             *(t.data_ptr() for t in ew), *(t.data_ptr() for t in dw),
-            out.data_ptr(), work.data_ptr(), *_probe_args(probe), B, T, D, F,
-            num_heads, 1.0 / math.sqrt(D // num_heads),
+            out.data_ptr(), work.data_ptr(), *_probe_args(probe),
+            *_saved_args(saved), B, T, D, F, num_heads,
+            1.0 / math.sqrt(D // num_heads),
             int(enc_in.dtype == torch.bfloat16),
             *_drop_args(train, rate, seed), _sms(dev), stream)
     _build.check(spec, err, f"B={B} T={T} D={D} F={F}")
     fused_encode_decode.launches += 1
+    if save:
+        fused_encode_decode.save_launches += 1
+        return out, saved
     return out
 
 
 def fused_block_bwd(ew, dw, *, enc_in, dec_in, seq_mask, g, num_heads: int,
                     train: bool = False, rate: float = 0.0, seed=None,
-                    probe=None):
+                    probe=None, saved=None):
     """The block's backward: ``fused_block_bwd_ref``'s contract.  CPU
     tensors take the plain version; CUDA tensors launch the kernel (three
     CUDA kernels: the weights packed into tensor-core fragments, the
     per-example backward, and the weight grads summed over all rows in
     fixed chunks and a fixed order, so runs are deterministic), built for
     the block's widths at their first use; anything else raises
-    (``check_widths``).  ``probe`` (two float32 tensors [B, T, F] and [B,
-    F]) gets the replay's FF pre-activations (``ff_preactivations``)."""
+    (``check_widths``, ``_check_saved``) before any build.  ``saved`` (the
+    save-mode forward's q, k, v, ctx_e) skips the encoder's projections
+    and attention in the replay.  ``probe`` (two float32 tensors [B, T, F]
+    and [B, F]) gets the replay's FF pre-activations
+    (``ff_preactivations``)."""
     if enc_in.device.type == "cpu":
         return fused_block_bwd_ref(ew, dw, enc_in=enc_in, dec_in=dec_in,
                                    seq_mask=seq_mask, g=g,
                                    num_heads=num_heads, train=train,
-                                   rate=rate, seed=seed)
+                                   rate=rate, seed=seed, saved=saved)
     if enc_in.device.type != "cuda":
         raise ValueError(f"fused_block_bwd: unsupported device "
                          f"{enc_in.device}")
@@ -428,6 +496,8 @@ def fused_block_bwd(ew, dw, *, enc_in, dec_in, seq_mask, g, num_heads: int,
     if g.shape != (B, D) or g.device != enc_in.device:
         raise ValueError(f"fused_block_bwd: g {tuple(g.shape)} on "
                          f"{g.device}, want ({B}, {D})")
+    if saved is not None:
+        _check_saved("fused_block_bwd", saved, enc_in)
     dev = enc_in.device
     enc = enc_in.contiguous()
     dec = dec_in.contiguous()
@@ -450,18 +520,23 @@ def fused_block_bwd(ew, dw, *, enc_in, dec_in, seq_mask, g, num_heads: int,
                 enc.data_ptr(), dec.data_ptr(), mask.data_ptr(),
                 *(t.data_ptr() for t in ew), *(t.data_ptr() for t in dw),
                 gg.data_ptr(), d_enc.data_ptr(), d_dec.data_ptr(),
-                work.data_ptr(), gw.data_ptr(), *_probe_args(probe), B, T, D,
-                F, num_heads, 1.0 / math.sqrt(D // num_heads),
+                work.data_ptr(), gw.data_ptr(), *_probe_args(probe),
+                *_saved_args(saved), B, T, D, F, num_heads,
+                1.0 / math.sqrt(D // num_heads),
                 int(enc_in.dtype == torch.bfloat16),
                 *_drop_args(train, rate, seed), _sms(dev), stream)
         _build.check(spec, err, f"B={B} T={T} D={D} F={F}")
         fused_block_bwd.launches += 1
+        if saved is not None:
+            fused_block_bwd.save_launches += 1
     shapes = [(D, 3 * D), (8, D), (D, F), (F,), (F, D)] * 2
     parts = torch.split(gw, sizes * 2)
     return d_enc, d_dec, tuple(p.view(s) for p, s in zip(parts, shapes))
 
 
 fused_block_bwd.launches = 0
+# of those, the launches that read the save mode's tensors
+fused_block_bwd.save_launches = 0
 
 
 def ff_preactivations(ew, dw, *, enc_in, dec_in, seq_mask, num_heads: int,
@@ -488,33 +563,41 @@ def ff_preactivations(ew, dw, *, enc_in, dec_in, seq_mask, num_heads: int,
     return fwd, bwd
 
 
+def save_wanted() -> bool:
+    """Whether ``DMT_BLOCK_SAVE`` asks for the save mode (``=1``), read at
+    each call as the JAX package's ``_save_wanted`` reads it."""
+    return os.environ.get("DMT_BLOCK_SAVE", "0") == "1"
+
+
 class _FusedBlock(torch.autograd.Function):
     """The fused block with its hand-written backward; the weights enter
-    packed (``pack_weights``)."""
+    packed (``pack_weights``).  With ``save``, the forward keeps the save
+    mode's (q, k, v, ctx_e) for the backward."""
 
     @staticmethod
     def forward(ctx, enc_in, dec_in, seq_mask, seed, num_heads, train, rate,
-                *w):
+                save, *w):
         ew, dw = w[:5], w[5:]
-        if enc_in.device.type == "cpu":
-            out = _fwd_ref(ew, dw, enc_in, dec_in, seq_mask, num_heads,
-                           train, rate, seed)
-        else:
-            out = _fwd_kernel(ew, dw, enc_in, dec_in, seq_mask, num_heads,
-                              train, rate, seed)
-        ctx.save_for_backward(enc_in, dec_in, seq_mask, seed, *w)
+        fwd = _fwd_ref if enc_in.device.type == "cpu" else _fwd_kernel
+        out = fwd(ew, dw, enc_in, dec_in, seq_mask, num_heads, train, rate,
+                  seed, save=save)
+        saved = ()
+        if save:
+            out, saved = out
+        ctx.save_for_backward(enc_in, dec_in, seq_mask, seed, *w, *saved)
         ctx.opts = (num_heads, train, rate)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        enc_in, dec_in, seq_mask, seed, *w = ctx.saved_tensors
+        enc_in, dec_in, seq_mask, seed, *rest = ctx.saved_tensors
         num_heads, train, rate = ctx.opts
+        w, saved = rest[:10], tuple(rest[10:])
         d_enc, d_dec, gw = fused_block_bwd(
             tuple(w[:5]), tuple(w[5:]), enc_in=enc_in, dec_in=dec_in,
             seq_mask=seq_mask, g=g, num_heads=num_heads, train=train,
-            rate=rate, seed=seed)
-        return (d_enc, d_dec, None, None, None, None, None) + tuple(gw)
+            rate=rate, seed=seed, saved=saved or None)
+        return (d_enc, d_dec, None, None, None, None, None, None) + tuple(gw)
 
 
 def fused_encode_decode(enc_params, dec_params, *, enc_in, dec_in, seq_mask,
@@ -526,16 +609,23 @@ def fused_encode_decode(enc_params, dec_params, *, enc_in, dec_in, seq_mask,
     from ``seed`` (an int32 tensor of one element on the inputs' device).
 
     CPU tensors take the plain versions; CUDA tensors launch the kernels,
-    and anything the kernels do not take raises."""
+    and anything the kernels do not take raises.  Where a backward can
+    follow (grad mode on, an input or weight that requires grad) and
+    ``save_wanted()``, the block runs in the save mode (module
+    docstring)."""
     if enc_in.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_encode_decode: unsupported device "
                          f"{enc_in.device}")
     ew, dw = pack_weights(enc_params), pack_weights(dec_params)
+    save = save_wanted() and torch.is_grad_enabled() and any(
+        t.requires_grad for t in (enc_in, dec_in) + ew + dw)
     return _FusedBlock.apply(enc_in, dec_in, seq_mask, seed, num_heads,
-                             bool(train), float(rate), *ew, *dw)
+                             bool(train), float(rate), save, *ew, *dw)
 
 
 fused_encode_decode.launches = 0
+# of those, the launches in the save mode
+fused_encode_decode.save_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -543,33 +633,54 @@ fused_encode_decode.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def _enc_qkv_att_flops(T: int, D: int) -> int:
+    """One example's encoder QKV projection, scores and P.V: what the
+    save mode's tensors stand for."""
+    return 2 * T * D * 3 * D + 2 * 2 * T * T * D
+
+
+def _saved_bytes(B: int, T: int, D: int, elem: int) -> int:
+    """The save mode's q, k, v (``elem`` bytes) and float32 ctx_e."""
+    return (3 * elem + 4) * B * T * D
+
+
 def block_flops(B: int, T: int, D: int, F: int) -> int:
     """Multiply-adds x 2 of one forward launch: encoder QKV, scores, P.V
     and FF; decoder Q, K/V over T rows, scores, P.V and FF."""
-    enc = 2 * T * D * 3 * D + 2 * 2 * T * T * D + 2 * 2 * T * D * F
+    enc = _enc_qkv_att_flops(T, D) + 2 * 2 * T * D * F
     dec = 2 * D * D + 2 * T * D * 2 * D + 2 * 2 * T * D + 2 * 2 * D * F
     return B * (enc + dec)
 
 
-def block_bytes(B: int, T: int, D: int, F: int, elem: int) -> int:
-    """Each input read once and the output written once: enc_in, dec_in
+def block_bytes(B: int, T: int, D: int, F: int, elem: int,
+                save: bool = False) -> int:
+    """Each input read once and each output written once: enc_in, dec_in
     and out in the input type (``elem`` bytes), the float32 mask and the
-    two float32 weight sets."""
+    two float32 weight sets; with ``save``, the saved q, k, v and ctx_e
+    written too."""
     weights = 2 * 4 * (D * 3 * D + 8 * D + D * F + F + F * D)
-    return elem * (B * T * D + 2 * B * D) + 4 * B * T + weights
+    return (elem * (B * T * D + 2 * B * D) + 4 * B * T + weights
+            + (_saved_bytes(B, T, D, elem) if save else 0))
 
 
-def block_bwd_flops(B: int, T: int, D: int, F: int) -> int:
+def block_bwd_flops(B: int, T: int, D: int, F: int,
+                    saved: bool = False) -> int:
     """One backward launch: the forward's products replayed, then each
-    product's two gradient products (input and weight), so 3x."""
-    return 3 * block_flops(B, T, D, F)
+    product's two gradient products (input and weight), so 3x; with
+    ``saved``, less the encoder's QKV projection and attention, which the
+    saved tensors stand for in the replay."""
+    ops = 3 * block_flops(B, T, D, F)
+    return ops - B * _enc_qkv_att_flops(T, D) if saved else ops
 
 
-def block_bwd_bytes(B: int, T: int, D: int, F: int, elem: int) -> int:
-    """Inputs read once (enc_in, dec_in, g, mask, weights) and outputs
-    written once (d_enc, d_dec, float32 weight grads)."""
+def block_bwd_bytes(B: int, T: int, D: int, F: int, elem: int,
+                    saved: bool = False) -> int:
+    """Inputs read once (enc_in, dec_in, g, mask, weights; with ``saved``,
+    the saved q, k, v and ctx_e) and outputs written once (d_enc, d_dec,
+    float32 weight grads)."""
     weights = 2 * 4 * (D * 3 * D + 8 * D + D * F + F + F * D)
-    return (2 * elem * (B * T * D + 2 * B * D) + 4 * B * T + 2 * weights)
+    return (2 * elem * (B * T * D + 2 * B * D) + 4 * B * T + 2 * weights
+            + (_saved_bytes(B, T, D, elem) if saved else 0))
 
 
 # dense tensor-core peaks of one H100 SXM (NVIDIA data sheet, 700 W)

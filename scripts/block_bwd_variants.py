@@ -18,7 +18,12 @@ norm-wise error against the plain version.  The phases:
   ``d_dec`` and the gradient reaching the encoder's output);
 - ``no_enc_ffln``: the encoder's FF and layer-norm backward;
 - ``no_enc_att``: the encoder's attention backward;
-- ``no_wgrad``: the weight-gradient accumulation.
+- ``no_wgrad``: the weight-gradient accumulation;
+
+and ``saved``, the unchanged source in the save mode (``DMT_BLOCK_SAVE``):
+given the encoder's Q, K, V and attention context that the forward kernel
+saved, the backward skips the encoder's projection and attention in its
+replay (a tree without the save mode has no such variant).
 
 Variants that skip a phase compute wrong gradients on purpose: their times
 split the kernel's time by phase.  The unchanged source runs first and
@@ -72,10 +77,11 @@ OLD_SUBS = {
                  ("  for (int j = threadIdx.x; j < N; j += blockDim.x) {",
                   "  for (int j = threadIdx.x; j < 0; j += blockDim.x) {")),
 }
-VARIANTS = ("source", *SKIP_BITS, "source_again")
+VARIANTS = ("source", "saved", *SKIP_BITS, "source_again")
 
+# run with the variant's name as its argument
 TIMING = r'''
-import json, torch, chip_smoke as cs
+import json, sys, torch, chip_smoke as cs
 from cikm2020_dmt_torch.core.config import TransformerConfig
 from cikm2020_dmt_torch.nn.transformer import transformer_init
 from cikm2020_dmt_torch.ops import block, _build
@@ -97,6 +103,10 @@ for T in (50, 10):
     kw = cs.block_inputs(T, torch.float32, gen, dev, B=2048)
     kw.update(train=True, rate=cs.DROPOUT, seed=seed)
     g = torch.randn(2048, 80, generator=gen, device=dev)
+    if sys.argv[1] == "saved":
+        kw["saved"] = block._fwd_kernel(
+            ew, dw, kw["enc_in"], kw["dec_in"], kw["seq_mask"], 4, True,
+            cs.DROPOUT, seed, save=True)[1]
     got = block.fused_block_bwd(ew, dw, g=g, **kw)
     err = cs._bwd_err(got, block.fused_block_bwd_ref(ew, dw, g=g, **kw))[0]
     ms = cs.cuda_ms(lambda: block.fused_block_bwd(ew, dw, g=g, **kw), 10,
@@ -108,7 +118,7 @@ print("RESULT", json.dumps(out), flush=True)
 
 def cut(src: str, name: str) -> str:
     """The source with the phase of variant ``name`` skipped."""
-    if name.startswith("source"):
+    if name.startswith("source") or name == "saved":
         return src
     if SKIP_DEFINE in src:
         return src.replace(SKIP_DEFINE,
@@ -133,17 +143,21 @@ def prepare(name: str, tree: str, root: str) -> subprocess.Popen:
         src = f.read()
     with open(path, "w") as f:
         f.write(cut(src, name))
+    # the saved variant also runs the forward kernel, in its save mode
+    kernels = "(block.BWD_KERNEL, block.KERNEL)" if name == "saved" \
+        else "(block.BWD_KERNEL,)"
     return subprocess.Popen(
         [sys.executable, "-c", "from cikm2020_dmt_torch.ops import _build, "
-         "block; _build.build([block.library(block.BWD_KERNEL, 80, 320, 4) "
-         "if hasattr(block, 'library') else 'fused_block_bwd'])"], cwd=d,
+         "block; _build.build([block.library(k, 80, 320, 4) "
+         "if hasattr(block, 'library') else k for k in " + kernels + "])"],
+        cwd=d,
         env=dict(os.environ, PYTHONPATH=d), stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
 
 
 def run_variant(name: str, root: str) -> str:
     d = os.path.join(root, name)
-    r = subprocess.run([sys.executable, "-c", TIMING], cwd=d,
+    r = subprocess.run([sys.executable, "-c", TIMING, name], cwd=d,
                        env=dict(os.environ, PYTHONPATH=d),
                        capture_output=True, text=True, timeout=900)
     lines = [ln for ln in r.stdout.splitlines() if ln.startswith("RESULT")]
@@ -163,13 +177,16 @@ def main() -> int:
         print("block_bwd_variants: no CUDA card", file=sys.stderr)
         return 2
     tree = os.path.abspath(args.tree)
+    with open(os.path.join(tree, "cikm2020_dmt_torch/ops/block.py")) as f:
+        has_save = "def save_wanted" in f.read()
+    variants = [v for v in VARIANTS if v != "saved" or has_save]
     with tempfile.TemporaryDirectory() as root:
-        builds = {name: prepare(name, tree, root) for name in VARIANTS}
+        builds = {name: prepare(name, tree, root) for name in variants}
         for name, proc in builds.items():
             out, _ = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(f"{name}: build failed\n{out[-4000:]}")
-        for name in VARIANTS:
+        for name in variants:
             print(name, run_variant(name, root), flush=True)
     return 0
 

@@ -571,3 +571,53 @@ def test_forward_and_replay_preactivations_equal_on_card(widths, T_, dtype,
     encoder attention's register tilings (T=300)."""
     from chip_smoke import check_replay
     check_replay(T_, getattr(torch, dtype), cuda_device, widths=widths)
+
+
+# ---------------------------------------------------------------------------
+# The save mode (DMT_BLOCK_SAVE): the forward also writes the encoder's Q,
+# K, V and attention context, and the backward reads them
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D,F,H,T_", [(80, 320, 4, 1), (80, 320, 4, 10),
+                                      (80, 320, 4, 50), (80, 320, 4, 55),
+                                      (80, 320, 4, 128), (36, 100, 3, 7)])
+def test_save_mode_bit_equal_on_card(D, F, H, T_, dtype, cuda_device):
+    """With dropout 0.1, the forward's output and the backward's 12
+    outputs are the same bits with the save mode's q, k, v and ctx_e as
+    without them (also where both kernels spill, T=55 and 128, and at
+    another width), and the saved tensors lie within chip_smoke's
+    ``KERNEL_TOL`` of the plain version's."""
+    from chip_smoke import check_save
+    check_save(D, F, H, T_, getattr(torch, dtype), cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["count", "shape", "dtype", "device"])
+def test_bad_saved_raises_before_any_build_on_card(bad, cuda_device,
+                                                   monkeypatch):
+    """A ``saved`` of the wrong count, shape, dtype (ctx_e must be
+    float32) or device raises before any build or launch."""
+    from cikm2020_dmt_torch.ops import _build
+
+    def no_build(specs):
+        raise AssertionError(f"build called for {specs}")
+
+    ew, dw, g, kw = _block_bwd_case(4, 10, torch.float32, cuda_device, 0.0)
+    B, T_, D = kw["enc_in"].shape
+    saved = [torch.zeros(B, T_, D, device=cuda_device) for _ in range(4)]
+    if bad == "count":
+        saved = saved[:3]
+    elif bad == "shape":
+        saved[0] = torch.zeros(B, T_ + 1, D, device=cuda_device)
+    elif bad == "dtype":
+        saved[3] = torch.zeros(B, T_, D, dtype=torch.bfloat16,
+                               device=cuda_device)
+    else:
+        saved[1] = torch.zeros(B, T_, D)
+    monkeypatch.setattr(_build, "build", no_build)
+    monkeypatch.setattr(_build, "bind", no_build)
+    with pytest.raises(ValueError, match="fused_block_bwd: saved"):
+        block.fused_block_bwd(ew, dw, g=g, saved=tuple(saved), **kw)
