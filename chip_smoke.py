@@ -67,6 +67,18 @@ again.  The phase checks
   the step timed with the switch on and off in turns
   (``save_train_phase``).
 
+The Python data path (``data_phase``, after the save mode): two TFRecord
+shards of 2048 flagship-schema examples each (Zipf(1.3) ids as strings,
+headers with pos and page), written with the port's ``encode_example``
+and ``write_records`` into a temporary directory and read back through
+``batch_stream`` and ``prefetch``; every batch held against what was
+written (ids the port's ``VocabSet`` lookups of the written strings);
+moved to the card by ``device_batch`` and trained on for 3 counted steps.
+It prints the pipeline's host examples/s beside the step's.
+
+The segment sum (``segsum_phase``) is also launched twice on each of its
+inputs: the two results must be the same bits.
+
 The block kernels are built for each width the run uses; every library is
 built in one parallel batch first (``build_specs``).
 
@@ -92,6 +104,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -479,6 +492,64 @@ def synthetic_batch(cfg, n: int, seed: int, device) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
 
 
+def synthetic_examples(cfg, n: int, seed: int) -> list[dict]:
+    """``n`` Examples of ``cfg``'s schema (feature name -> values, as
+    ``data/example.py`` ``encode_example`` takes them) from a numpy seed:
+    normal dense features, a label and its one-hot mask, a tab-separated
+    header of ``cfg.header_schema``'s fields whose pos and page run past
+    the propensity tables' last entries, and per id feature the lengths
+    ``synthetic_batch`` draws (1..max_len) of Zipf(1.3) ids written as
+    decimal strings; timestamp features carry raw values below 10**7."""
+    from cikm2020_dmt_torch.data.schema import FeatureSchema
+
+    rng = np.random.default_rng(seed)
+    schema = FeatureSchema.from_config(cfg)
+    classes = sorted(c for c, _ in cfg.train_weight)
+    labels = rng.choice([0, 0, 0, 1, 2, 4, 5], n)
+    dense = rng.normal(size=(n, cfg.feature_dimension)).astype(np.float32)
+    pos = rng.integers(0, 500, n)
+    page = rng.integers(0, 120, n)
+    where = schema.header_index
+    ts_feats = set(cfg.attention_ts)
+    cols = {}
+    for f in schema.id_features:
+        lens = rng.integers(1, f.max_len + 1, n)
+        vals = (rng.integers(1, 10**7, (n, f.max_len))
+                if f.name in ts_feats else rng.zipf(1.3, (n, f.max_len)))
+        cols[f.name] = (lens, vals)
+    out = []
+    for i in range(n):
+        header = [b"%s%d" % (name.encode(), i) for name in cfg.header_schema]
+        header[where["pos"]] = b"%d" % pos[i]
+        header[where["page"]] = b"%d" % page[i]
+        mask = [0.0] * len(classes)
+        mask[classes.index(int(labels[i]))] = 1.0
+        ex = {"features": dense[i].tolist(), "label": [float(labels[i])],
+              "mask": mask, "header": [b"\t".join(header)]}
+        for name, (lens, vals) in cols.items():
+            ex[name] = [b"%d" % v for v in vals[i, :lens[i]]]
+        out.append(ex)
+    return out
+
+
+def write_shards(cfg, directory: str, shards: int, per_shard: int,
+                 seed: int) -> list[list[dict]]:
+    """Writes ``shards`` TFRecord files ``part-r-00000``, ... of
+    ``per_shard`` ``synthetic_examples`` each into ``directory`` with the
+    port's ``encode_example`` and ``write_records``; returns the examples,
+    shard by shard."""
+    from cikm2020_dmt_torch.data.example import encode_example
+    from cikm2020_dmt_torch.data.tfrecord import write_records
+
+    parts = []
+    for s in range(shards):
+        exs = synthetic_examples(cfg, per_shard, seed + s)
+        write_records(os.path.join(directory, f"part-r-{s:05d}"),
+                      (encode_example(e) for e in exs))
+        parts.append(exs)
+    return parts
+
+
 def _leaves(tree, prefix=""):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -706,6 +777,126 @@ def train_phase(cfg, dev, expected: dict) -> dict:
             "examples_per_s": eps, "peak_gb": peak_gb, "trainer": tr,
             "state": state, "metrics": metrics, "gen": gen,
             "batches": batches}
+
+
+DATA_SHARDS = 2
+
+
+def check_file_batch(cfg, batch, examples, vocabs) -> None:
+    """A batch that ``batch_stream`` assembled against the examples it was
+    read from: dense features, label, mask and headers as written; every
+    id feature's length as written, weights 1 over it and 0 past it, ids
+    the port's ``VocabSet`` lookups of the written strings (timestamps
+    their values) and 0 past the length; pos and page clipped to the
+    propensity tables, every weight 1 (no propensity file)."""
+    from cikm2020_dmt_torch.data.pipeline import IDS, LEN, WTS
+    from cikm2020_dmt_torch.data.propensity import MAX_PAGE, MAX_POSITION
+    from cikm2020_dmt_torch.data.schema import FeatureSchema
+
+    n = len(examples)
+    if batch.size != n or not batch["valid"].all():
+        raise AssertionError(f"file batch of {batch.size}, want {n} valid")
+    want = {"features": np.array([e["features"] for e in examples],
+                                 np.float32),
+            "label": np.array([e["label"][0] for e in examples], np.float32),
+            "mask": np.array([e["mask"] for e in examples], np.float32)}
+    where = FeatureSchema.from_config(cfg).header_index
+    fields = [e["header"][0].split(b"\t") for e in examples]
+    want["em_position"] = np.minimum(
+        [int(h[where["pos"]]) for h in fields], MAX_POSITION)
+    want["em_page"] = np.minimum([int(h[where["page"]]) for h in fields],
+                                 MAX_PAGE)
+    for k in ("propensity", "propensity_weight",
+              "propensity_weight_positive", "propensity_weight_mul"):
+        want[k] = np.ones(n, np.float32)
+    ts_feats = set(cfg.attention_ts)
+    for f in FeatureSchema.from_config(cfg).id_features:
+        lens = np.array([len(e[f.name]) for e in examples])
+        ids = np.zeros((n, f.max_len), np.int64)
+        look = {}
+        for i, e in enumerate(examples):
+            for j, v in enumerate(e[f.name]):
+                if v not in look:
+                    look[v] = (int(v) if f.name in ts_feats
+                               else vocabs.by_feature[f.name].lookup_one(v))
+                ids[i, j] = look[v]
+        want[f.name + IDS] = ids
+        want[f.name + LEN] = lens
+        want[f.name + WTS] = (np.arange(f.max_len)[None]
+                              < lens[:, None]).astype(np.float32)
+    for k, v in want.items():
+        if not np.array_equal(batch[k], v):
+            raise AssertionError(f"file batch: {k} differs from what was "
+                                 "written")
+    if batch.headers != [e["header"][0] for e in examples]:
+        raise AssertionError("file batch: headers differ from what was "
+                             "written")
+
+
+def data_phase(cfg, tr, state, gen, dev, expected: dict) -> dict:
+    """The Python data path at the flagship's full width: two TFRecord
+    shards of ``TRAIN_BATCH`` ``synthetic_examples`` each, written into a
+    temporary directory and read back through ``batch_stream`` and
+    ``prefetch`` (host clock: the pipeline's examples/s); each batch held
+    against what was written (``check_file_batch``); the batches moved to
+    the card (``device_batch``: the dtypes and shapes of
+    ``synthetic_batch``) and 3 ``Trainer`` steps run from them, counted
+    (exactly ``expected`` launches per step) and timed by CUDA events."""
+    from cikm2020_dmt_torch.data.pipeline import (batch_stream,
+                                                  device_batch, prefetch)
+    from cikm2020_dmt_torch.data.vocab import VocabSet
+    from cikm2020_dmt_torch.metrics.streaming import task_metrics_init
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        parts = write_shards(cfg, d, DATA_SHARDS, TRAIN_BATCH, SEED + 300)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        batches = list(prefetch(batch_stream(cfg, d + "/", TRAIN_BATCH)))
+        read_s = time.perf_counter() - t0
+    n = DATA_SHARDS * TRAIN_BATCH
+    host_eps = n / read_s
+    if len(batches) != DATA_SHARDS:
+        raise AssertionError(f"{len(batches)} batches read back, want "
+                             f"{DATA_SHARDS}")
+    vocabs = VocabSet(cfg.embeddings + cfg.embeddings_bias, cfg.vocab_path)
+    for b, exs in zip(batches, parts):
+        check_file_batch(cfg, b, exs, vocabs)
+    t0 = time.perf_counter()
+    dbs = [device_batch(b, dev) for b in batches]
+    torch.cuda.synchronize()
+    xfer_ms = (time.perf_counter() - t0) * 1e3 / len(dbs)
+    like = synthetic_batch(cfg, TRAIN_BATCH, SEED, dev)
+    for k, v in like.items():
+        got = dbs[0][k]
+        if got.dtype != v.dtype or got.shape != v.shape or \
+                got.device != v.device:
+            raise AssertionError(f"device_batch {k}: {got.dtype} "
+                                 f"{tuple(got.shape)} on {got.device}, "
+                                 f"synthetic_batch {v.dtype} "
+                                 f"{tuple(v.shape)} on {v.device}")
+    steps = 3
+    state, _, losses, counts, step_ms, wall_ms = timed_steps(
+        tr, state, task_metrics_init(dev), dbs, gen, steps)
+    for name, k in counts.items():
+        if k != expected.get(name, 0) * steps:
+            raise AssertionError(f"data phase: {name} launched {k} times "
+                                 f"in {steps} steps, expected "
+                                 f"{expected.get(name, 0)} per step")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"data phase: non-finite loss {losses}")
+    step_eps = TRAIN_BATCH / (step_ms / 1e3)
+    log(f"data phase: {DATA_SHARDS} shards of {TRAIN_BATCH} examples "
+        f"written in {write_s:.2f}s, read back through batch_stream + "
+        f"prefetch in {read_s:.3f}s: {host_eps:.1f} examples/s on the host; "
+        f"batches as written; device_batch {xfer_ms:.3f} ms a batch (host "
+        f"clock, synchronised); {steps} steps from them: {step_ms:.3f} ms "
+        f"(CUDA events; host clock {wall_ms:.3f} ms), {step_eps:.1f} "
+        f"examples/s, losses {losses}, launches {json.dumps(counts)}; the "
+        f"pipeline feeds {host_eps / step_eps:.4f} of what the step takes")
+    return {"host_examples_per_s": host_eps, "step_examples_per_s": step_eps,
+            "step_ms": step_ms, "read_s": read_s, "write_s": write_s,
+            "device_batch_ms": xfer_ms, "counts": counts, "state": state}
 
 
 def _entry(name, source, replaces, launches, err, ms, plain, b, lib, **kw):
@@ -1435,7 +1626,8 @@ def build_specs():
 def segsum_phase(cfg, tr, state, batch, counts, dev):
     """The segment sum against its plain version on the union of a real
     training batch (N = 2048 x 111 ids, D=32), bfloat16 (the main path's
-    grid type) and float32, and with the budget overflowed."""
+    grid type) and float32, and with the budget overflowed; two launches
+    the same bits in each case; timed in bfloat16 and float32."""
     from cikm2020_dmt_torch.ops import scatter_rows as sr
     from cikm2020_dmt_torch.train.lazy import collect
 
@@ -1451,6 +1643,7 @@ def segsum_phase(cfg, tr, state, batch, counts, dev):
         num = c.uids.numel() + 1
         g = torch.randn(N, 32, generator=gen, device=dev).to(dtype)
         got = sr.sorted_segment_sum_rows(g, c.order, c.seg_sorted, num)
+        again = sr.sorted_segment_sum_rows(g, c.order, c.seg_sorted, num)
         want = sr.sorted_segment_sum_rows_ref(g, c.order, c.seg_sorted, num)
         torch.cuda.synchronize()
         # float32 sums of up to ~10**5 rows (the padding id's run) taken
@@ -1459,28 +1652,41 @@ def segsum_phase(cfg, tr, state, batch, counts, dev):
                                              num)
         d = (got - want).abs()
         ok = bool((d <= 1e-6 * mag + 1e-6).all())
+        same = torch.equal(got, again)
         log(f"sorted_segsum N={N} D=32 {str(dtype).split('.')[-1]} "
             f"U={num - 1} overflow={int(c.overflow)}: max |diff| "
             f"{float(d.max()):.3e}, {float((d / (mag + 1e-30)).max()):.3e} "
-            f"of the run's sum of |g| (tol 1e-6)")
+            f"of the run's sum of |g| (tol 1e-6); two launches bit-equal: "
+            f"{same}")
         if not ok:
             raise AssertionError("sorted_segsum disagrees with its plain "
                                  "version")
+        if not same:
+            raise AssertionError("sorted_segsum: two launches on the same "
+                                 "inputs differ")
         err = max(err, float(d.max()))
     if int(over.overflow) <= 0:
         raise AssertionError("the overflow case did not overflow")
-    g = torch.randn(N, 32, generator=gen, device=dev).to(torch.bfloat16)
-    g32 = g.float()
     num = U + 1
-    ms = cuda_ms(lambda: sr.sorted_segment_sum_rows(
-        g, col.order, col.seg_sorted, num), 50)
-    plain = cuda_ms(lambda: sr.sorted_segment_sum_rows_ref(
-        g, col.order, col.seg_sorted, num), 20)
-    lib = cuda_ms(lambda: torch.zeros(num, 32, device=dev).index_add_(
-        0, col.pos, g32), 20)
-    b = bound(0, sr.segsum_bytes(N, 32, 2, num))
-    log(f"sorted_segsum N={N} bf16: kernel {ms:.4f} ms, plain {plain:.4f} "
-        f"ms, index_add_ {lib:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+    lens = torch.unique_consecutive(col.seg_sorted, return_counts=True)[1]
+    timed = {}
+    g32 = torch.randn(N, 32, generator=gen, device=dev)
+    for name, g, elem in (("bfloat16", g32.to(torch.bfloat16), 2),
+                          ("float32", g32, 4)):
+        ms = cuda_ms(lambda: sr.sorted_segment_sum_rows(
+            g, col.order, col.seg_sorted, num), 50)
+        plain = cuda_ms(lambda: sr.sorted_segment_sum_rows_ref(
+            g, col.order, col.seg_sorted, num), 20)
+        lib = cuda_ms(lambda: torch.zeros(num, 32, device=dev).index_add_(
+            0, col.pos, g32), 20)
+        b = bound(0, sr.segsum_bytes(N, 32, elem, num))
+        log(f"sorted_segsum N={N} {name} ({lens.numel()} runs, the longest "
+            f"{int(lens.max())} rows): kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, index_add_ {lib:.4f} ms, bound {b[0]:.4f} ms "
+            f"({b[1]}); kernel / bound {ms / b[0]:.2f}")
+        timed[name] = (ms, plain, b, lib)
+    ms, plain, b, lib = timed["bfloat16"]
+    ms32, plain32, b32, lib32 = timed["float32"]
     entry = _entry(
         "sorted_segsum", "cikm2020_dmt_torch/csrc/sorted_segsum.cu",
         "cikm2020_dmt_tpu/ops/scatter_rows.py:169", counts["sorted_segsum"],
@@ -1488,7 +1694,11 @@ def segsum_phase(cfg, tr, state, batch, counts, dev):
         library_note="torch.zeros(U+1, 32).index_add_(0, pos, g) on the "
                      "float32 rows (index_add_ on the bf16 rows would sum in "
                      "bf16)",
-        shape={"N": N, "D": 32, "dtype": "bfloat16", "num_out": num})
+        shape={"N": N, "D": 32, "dtype": "bfloat16", "num_out": num,
+               "runs": lens.numel(), "longest_run": int(lens.max())},
+        bit_equal_repeat=True,
+        float32={"ms": ms32, "plain_ms": plain32, "bound_ms": b32[0],
+                 "bound_by": b32[1], "library_ms": lib32})
     return entry, col
 
 
@@ -1956,8 +2166,19 @@ def main() -> int:
         f"the save mode, {save_train['off_step_ms']:.3f} ms without it in "
         f"the same phase ({step_ms:.3f} ms in the training phase); wall "
         f"{time.perf_counter() - t_s:.1f}s")
+
+    # ---- the Python data path: TFRecord shards -> batch_stream -> card ----
+    t_d = time.perf_counter()
+    data = data_phase(cfg, train["trainer"], train["state"], train["gen"],
+                      dev, EXPECTED_PER_STEP["dmt"])
+    for rec in [fwd, bwd, seg] + rows:
+        by = rec.setdefault("launches_by_path",
+                            {"train": counts[rec["name"]]})
+        by["data"] = data["counts"][rec["name"]]
+    log(f"data phase: wall {time.perf_counter() - t_d:.1f}s")
     p50 = serve["p50"]
-    del train, col, serve
+    data_eps = (data["host_examples_per_s"], data["step_examples_per_s"])
+    del train, col, serve, data
     torch.cuda.empty_cache()
     t_flag = time.perf_counter() - t_flag
 
@@ -1992,8 +2213,9 @@ def main() -> int:
         f"{step_ms:.3f} ms, {eps:.1f} examples/s at batch {TRAIN_BATCH}; "
         f"with DMT_BLOCK_SAVE=1 {save_train['step_ms']:.3f} ms, "
         f"{save_train['examples_per_s']:.1f} examples/s (without it in the "
-        f"same phase {save_train['off_step_ms']:.3f} ms); wall "
-        f"{t_flag:.1f}s")
+        f"same phase {save_train['off_step_ms']:.3f} ms); Python data "
+        f"path {data_eps[0]:.1f} examples/s on the host against the "
+        f"step's {data_eps[1]:.1f}; wall {t_flag:.1f}s")
     log(f"dmt_2block: request p50 {serve2['p50']:.3f} ms, p90 "
         f"{serve2['p90']:.3f} ms; eval {ev['ms_per_batch']:.3f} ms per "
         f"batch of {ev['batch']}, {ev['examples_per_s']:.1f} examples/s; "

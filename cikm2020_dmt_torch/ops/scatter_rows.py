@@ -24,13 +24,16 @@ from . import _build
 
 SEGSUM_KERNEL = "sorted_segsum"
 UPDATE_KERNEL = "update_rows"
-SEGSUM_CHUNK = 64  # sorted rows per warp in csrc/sorted_segsum.cu
+# sorted rows of a block of csrc/sorted_segsum.cu's first launch (its kTile;
+# the launcher refuses any other)
+SEGSUM_TILE = 256
 
 _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 
-# g is_bf16 order seg N D out head tail stream
-_SEGSUM_ARGS = (_PTR, _I32, _PTR, _PTR, _I64, _I32, _PTR, _PTR, _PTR, _PTR)
+# g is_bf16 order seg N D num_out out tile scratch scratch_words stream
+_SEGSUM_ARGS = (_PTR, _I32, _PTR, _PTR, _I64, _I32, _I64, _PTR, _I32, _PTR,
+                _I64, _PTR)
 # table R D elem_bytes ids rows n stream
 _UPDATE_ARGS = (_PTR, _I64, _I32, _I32, _PTR, _PTR, _I64, _PTR)
 
@@ -81,26 +84,34 @@ def sorted_segment_sum_rows(g, order, seg_sorted,
     if num_out < 1:
         raise ValueError(f"sorted_segment_sum_rows: num_out {num_out}")
     dev = g.device
+    if N == 0:
+        return torch.zeros((num_out, D), dtype=torch.float32, device=dev)
     g = g.contiguous()
     order, seg_sorted = order.contiguous(), seg_sorted.contiguous()
-    out = torch.zeros((num_out, D), dtype=torch.float32, device=dev)
-    if N == 0:
-        return out
-    chunks = -(-N // SEGSUM_CHUNK)
-    head = torch.empty((chunks, D), dtype=torch.float32, device=dev)
-    tail = torch.empty((chunks, D), dtype=torch.float32, device=dev)
+    # the kernel writes every slot, zero or sum
+    out = torch.empty((num_out, D), dtype=torch.float32, device=dev)
+    words = segsum_scratch_words(N, D, num_out)
+    scratch = torch.empty((words,), dtype=torch.int64, device=dev)
     launch = _build.bind(SEGSUM_KERNEL, _SEGSUM_ARGS)
     with torch.cuda.device(dev):
         err = launch(g.data_ptr(), int(g.dtype == torch.bfloat16),
-                                order.data_ptr(), seg_sorted.data_ptr(), N, D,
-                                out.data_ptr(), head.data_ptr(),
-                                tail.data_ptr(), _stream(dev))
-    _build.check(SEGSUM_KERNEL, err, f"N={N} D={D}")
+                     order.data_ptr(), seg_sorted.data_ptr(), N, D, num_out,
+                     out.data_ptr(), SEGSUM_TILE, scratch.data_ptr(), words,
+                     _stream(dev))
+    _build.check(SEGSUM_KERNEL, err, f"N={N} D={D} num_out={num_out}")
     sorted_segment_sum_rows.launches += 1
     return out
 
 
 sorted_segment_sum_rows.launches = 0
+
+
+def segsum_scratch_words(N: int, D: int, num_out: int) -> int:
+    """int64 words of ``csrc/sorted_segsum.cu``'s scratch: the float32
+    pieces of the runs cut by tile edges, [2, ceil(N / SEGSUM_TILE), D]
+    (two to a word), then the first sorted row of each slot's run,
+    [num_out]."""
+    return -(-N // SEGSUM_TILE) * D + num_out
 
 
 # ---------------------------------------------------------------------------

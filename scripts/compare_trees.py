@@ -15,7 +15,12 @@ fresh process of each tree times at the main paths' shapes, float32
 - ``fused_encode_decode`` at B=300 (serving, T=50 and 10) and B=2048
   (training, dropout 0.1), and ``fused_block_bwd`` at B=2048;
 - ``fused_attention`` and ``fused_attention_bwd`` at B=2048 and (Tq, Tk)
-  in (50, 50), (10, 10), (1, 50), (1, 10).
+  in (50, 50), (10, 10), (1, 50), (1, 10);
+- ``sorted_segment_sum_rows`` at the flagship's Sku union (N = 2048 x 111
+  sorted rows, D = 32; ``scripts/segsum_variants.py`` ``FLAGSHIP_UNION``),
+  bfloat16 and float32;
+- the flagship's training step at batch 2048 (``chip_smoke.train_phase``
+  on ``conf/dmt.conf``: CUDA events over 10 steps after 3 warm-up steps).
 
 It prints ptxas's register and spill lines of each tree's block backward,
 one ``<tree> RESULT {json}`` line a turn (trees named old, new, new2,
@@ -31,6 +36,8 @@ import os
 import subprocess
 import sys
 
+from segsum_variants import FLAGSHIP_UNION
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # the build spec of a block kernel at the model's widths in either tree:
@@ -41,13 +48,14 @@ SPEC = ("(block.library(k, 80, 320, 4) if hasattr(block, 'library') "
 BUILD = f'''
 from cikm2020_dmt_torch.ops import _build, block
 specs = [{SPEC} for k in (block.KERNEL, block.BWD_KERNEL)]
-_build.build(specs + ["attention_fwd", "attention_bwd"])
+_build.build(specs + ["attention_fwd", "attention_bwd", "sorted_segsum",
+                      "update_rows"])
 for line in _build.build_log(specs[1]).splitlines():
     if "registers" in line or "spill" in line:
         print("ptxas", line.strip())
 '''
 
-TIMING = r'''
+TIMING = FLAGSHIP_UNION + r'''
 import json, torch
 import chip_smoke as cs
 from cikm2020_dmt_torch.core.config import TransformerConfig
@@ -80,6 +88,16 @@ for Tq, Tk in ((50, 50), (10, 10), (1, 50), (1, 10)):
         lambda: att.fused_attention(q, k, v, qm, km, 4), 20)
     out[f"att_bwd_{Tq}x{Tk}"] = cs.cuda_ms(
         lambda: att.fused_attention_bwd(q, k, v, qm, km, do, 4), 10)
+from cikm2020_dmt_torch.ops import scatter_rows as sr
+order, seg, pos, num = flagship_union(dev)
+g32 = torch.randn(order.numel(), 32, generator=gen, device=dev)
+for name, g in (("bf16", g32.to(torch.bfloat16)), ("f32", g32)):
+    out[f"segsum_{name}"] = cs.cuda_ms(
+        lambda: sr.sorted_segment_sum_rows(g, order, seg, num), 50)
+del order, seg, pos, g32, g
+torch.cuda.empty_cache()
+out["flagship_step"] = cs.train_phase(
+    DMTConfig.from_ini(cs.CONF), dev, cs.EXPECTED_PER_STEP["dmt"])["step_ms"]
 print("RESULT " + json.dumps(out))
 '''
 

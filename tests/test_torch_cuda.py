@@ -621,3 +621,81 @@ def test_bad_saved_raises_before_any_build_on_card(bad, cuda_device,
     monkeypatch.setattr(_build, "bind", no_build)
     with pytest.raises(ValueError, match="fused_block_bwd: saved"):
         block.fused_block_bwd(ew, dw, g=g, saved=tuple(saved), **kw)
+
+
+# ---------------------------------------------------------------------------
+# The segment sum's tiles (csrc/sorted_segsum.cu: 256 sorted rows a tile)
+# ---------------------------------------------------------------------------
+
+
+def _segsum_case(N, pad, D, dt, dev, seed=0, p=4):
+    """A lazy-Adam union of ``N`` ids in groups of ``p``: ``pad`` of them
+    the padding id 0 (one run over ``pad`` sorted rows), the rest
+    heavy-tailed; slot = group run index * p + the row in the group, so
+    slots no id names are skipped, and every group past the budget (a
+    fifth fewer than the distinct groups) goes to the overflow slot, with
+    two slots no id names past it.  Returns (g, order, seg, num_out)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids = torch.from_numpy((rng.zipf(1.3, N) * 2654435761) % 500_000)
+    ids[:pad] = 0
+    ids = ids.to(dev)
+    s, order = torch.sort(ids, stable=True)
+    grp = s // p
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[1:] = grp[1:] != grp[:-1]
+    seg = torch.cumsum(first.long(), 0) - 1
+    U = max(1, int(int(first.sum()) * 0.8))
+    seg = torch.where(seg < U, seg * p + s % p, torch.full_like(seg, U * p))
+    g = torch.from_numpy(rng.normal(size=(N, D)).astype(np.float32))
+    return g.to(dev).to(dt), order, seg, U * p + 3
+
+
+# (N, padding rows): a padding run over more than 1,000 tiles; N not a
+# multiple of the tile; N below one tile; one row
+SEGSUM_TILE_CASES = [(300_000, 280_000), (5_001, 2_000), (200, 150), (1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [32, 40, 12])
+@pytest.mark.parametrize("N,pad", SEGSUM_TILE_CASES)
+def test_segsum_tiles_match_plain_on_card(N, pad, D, dtype, cuda_device):
+    """The segment sum against its plain version where runs cross tiles,
+    with skipped slots, an overflow slot and unnamed slots past it, at
+    D = 32 and 40 (16-byte row copies) and 12 (bf16 rows of 24 bytes:
+    element copies); the unnamed slots are exactly 0 (the kernel writes
+    every slot of an uninitialised output)."""
+    from cikm2020_dmt_torch.ops import scatter_rows as sr
+    g, order, seg, num = _segsum_case(N, pad, D, getattr(torch, dtype),
+                                      cuda_device)
+    got = sr.sorted_segment_sum_rows(g, order, seg, num)
+    want = sr.sorted_segment_sum_rows_ref(g, order, seg, num)
+    # float32 sums taken in another order: the error scales with a run's
+    # sum of |g|
+    mag = sr.sorted_segment_sum_rows_ref(g.abs(), order, seg, num)
+    torch.cuda.synchronize()
+    assert ((got - want).abs() <= 1e-6 * mag + 1e-6).all()
+    named = torch.zeros(num, dtype=torch.bool, device=cuda_device)
+    named[seg] = True
+    assert (~named).any() and (got[~named] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [32, 12])
+def test_segsum_repeats_bit_for_bit_on_card(D, dtype, cuda_device):
+    """Two launches on the same inputs give the same bits (a fixed order
+    of sums, no atomics), the padding run over more than 1,000 tiles; the
+    output is taken from a pool that held other values in between."""
+    from cikm2020_dmt_torch.ops import scatter_rows as sr
+    g, order, seg, num = _segsum_case(300_000, 280_000, D,
+                                      getattr(torch, dtype), cuda_device,
+                                      seed=1)
+    first = sr.sorted_segment_sum_rows(g, order, seg, num)
+    junk = torch.full((num * D * 2,), float("nan"), device=cuda_device)
+    del junk
+    second = sr.sorted_segment_sum_rows(g, order, seg, num)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)

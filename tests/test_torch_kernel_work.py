@@ -129,3 +129,36 @@ def test_block_fwd_tensor_core_bound(B, T, fma_ms, tf32_ms, bf16_ms):
     assert round(ops / 67e12 * 1e3, 4) == fma_ms
     assert round(block.block_tc_bound_ms(ops, torch.float32), 4) == tf32_ms
     assert round(block.block_tc_bound_ms(ops, torch.bfloat16), 4) == bf16_ms
+
+
+# (N, D, num_out, int64 words of the segment sum's scratch): the flagship
+# step's Sku union (N = 2048 x 111 sorted rows, 113,665 slots: 888 tiles of
+# 256 rows), N not a multiple of the tile, N below one tile, one row
+SEGSUM_SCRATCH = [(227_328, 32, 113_665, 888 * 32 + 113_665),
+                  (5_001, 40, 801, 20 * 40 + 801),
+                  (200, 12, 103, 12 + 103),
+                  (1, 32, 7, 32 + 7)]
+
+
+@pytest.mark.parametrize("N,D,num_out,words", SEGSUM_SCRATCH)
+def test_segsum_scratch_holds_the_pieces_and_first_rows(N, D, num_out,
+                                                        words):
+    """The scratch holds two float32 pieces (head, tail) of D columns for
+    every tile of ``SEGSUM_TILE`` sorted rows, two to an int64 word, then
+    one int64 first row for every slot."""
+    assert sr.SEGSUM_TILE == 256
+    assert sr.segsum_scratch_words(N, D, num_out) == words
+    tiles = -(-N // sr.SEGSUM_TILE)
+    assert 8 * words == 2 * 4 * tiles * D + 8 * num_out
+
+
+@pytest.mark.parametrize("elem,nbytes,bound_us", [(2, 32_735_360, 9.772),
+                                                  (4, 47_284_352, 14.115)])
+def test_segsum_bound_counts_each_byte_once(elem, nbytes, bound_us):
+    """At the flagship's union: the rows and the int64 order and run
+    index read once, the float32 output (every slot, named or not)
+    written once; the kernel's scratch is not the function's work."""
+    got = sr.segsum_bytes(227_328, 32, elem, 113_665)
+    assert got == 227_328 * 32 * elem + 16 * 227_328 + 4 * 113_665 * 32
+    assert got == nbytes
+    assert round(got / HBM_BYTES_PER_S * 1e6, 3) == bound_us
