@@ -76,6 +76,18 @@ written (ids the port's ``VocabSet`` lookups of the written strings);
 moved to the card by ``device_batch`` and trained on for 3 counted steps.
 It prints the pipeline's host examples/s beside the step's.
 
+Training from files as a user runs it (``files_phase``, after the data
+phase): four shards of 2048 examples read back through the C++ assembler
+(``data/native.py``, built with ``g++``; its host examples/s beside the
+Python path's and the step's), every batch as written and equal to the
+Python path's; the packed ``Trainer.device_batch`` timed and checked
+against the unpacked copy; ``cli.train.main`` on ``conf/dmt.conf``'s
+model for 4 steps with a save every 2 (exactly the training path's
+launches per step, finite losses, every checkpoint with its DONE marker,
+the result-file and summary lines), ``model.ckpt-4`` restored bit-equal
+to the state the run ended with, and two runs resumed from
+``model.ckpt-2`` under ``deterministic`` bit-equal to each other.
+
 The segment sum (``segsum_phase``) is also launched twice on each of its
 inputs: the two results must be the same bits.
 
@@ -157,6 +169,14 @@ KERNELS = ("fused_block_fwd", "fused_block_bwd", "sorted_segsum",
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def card_name_and_limit() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def make_requests(cfg, n_candidates: int, lens_per_request, seed: int):
@@ -897,6 +917,254 @@ def data_phase(cfg, tr, state, gen, dev, expected: dict) -> dict:
     return {"host_examples_per_s": host_eps, "step_examples_per_s": step_eps,
             "step_ms": step_ms, "read_s": read_s, "write_s": write_s,
             "device_batch_ms": xfer_ms, "counts": counts, "state": state}
+
+
+FILE_SHARDS = 4
+FILE_STEPS = 4
+FILE_SAVE_EVERY = 2
+
+
+def write_conf(cfg, path: str, data_path: str, output_path: str) -> None:
+    """``conf/dmt.conf`` with ``cfg``'s widths, tables, batch size, save
+    cadence and transformer dropout, its data read from ``data_path`` and
+    its output (checkpoints, result file, summaries) under
+    ``output_path``: a config file that ``cli.train`` reads as ``cfg``."""
+    import configparser
+
+    cp = configparser.ConfigParser()
+    cp.read(CONF)
+    model = {"feature_dimension": cfg.feature_dimension,
+             "hidden_units_bottom": cfg.hidden_units_bottom,
+             "hidden_units_task": cfg.hidden_units_task,
+             "num_experts": cfg.num_experts, "batch_size": cfg.batch_size,
+             "validate_step": cfg.validate_step,
+             "transformer_dropout_rate": cfg.transformer.dropout_rate}
+    for k, v in model.items():
+        cp["model"][k] = (",".join(map(str, v)) if isinstance(v, tuple)
+                          else str(v))
+
+    def specs(s):
+        return "#".join(f"{e.table}:{e.id_size}:{e.dim}:{e.feature}:{e.side}"
+                        for e in s)
+
+    cp["embedding"]["emb"] = specs(cfg.embeddings)
+    cp["embedding"]["emb_bias"] = specs(cfg.embeddings_bias)
+    cp["embedding"]["attention_embed"] = "|".join(
+        "#".join(f"{a}:{b}" for a, b in group)
+        for group in cfg.attention_pairs)
+    cp["embedding"]["attention_embed_seq_ts"] = "|".join(cfg.attention_ts)
+    cp["path"]["output_path"] = output_path
+    cp["path"]["summary_path"] = os.path.join(output_path, "summary")
+    cp["path"]["train_data_path"] = data_path
+    cp["path"]["train_data_stat_path"] = ""
+    with open(path, "w") as f:
+        cp.write(f)
+
+
+def _same_bits(a: dict, b: dict, what: str) -> int:
+    """Raises unless the two states hold the same leaves, dtypes and bits;
+    returns the number of leaves."""
+    la, lb = dict(_leaves(a)), dict(_leaves(b))
+    bad = [k for k in la if k not in lb or la[k].dtype != lb[k].dtype
+           or not torch.equal(la[k], lb[k])]
+    if bad or set(la) != set(lb):
+        raise AssertionError(f"{what}: leaves differ: {bad[:5]} "
+                             f"(of {len(la)}; keys {set(la) ^ set(lb)})")
+    return len(la)
+
+
+def files_phase(cfg, dev, expected: dict, python_eps: float,
+                unpacked_ms: float, step_eps: float) -> dict:
+    """Training from files as a user runs it, at ``cfg``'s width:
+
+    - ``FILE_SHARDS`` TFRecord shards of ``TRAIN_BATCH`` examples written
+      and read back through the C++ assembler (``native_batch_stream``;
+      host clock, the library's build apart): every batch as written
+      (``check_file_batch``) and equal, array for array and header for
+      header, to the Python path's batches of the same files;
+    - ``Trainer.device_batch`` with the packed transfer: ms a batch on the
+      host clock, synchronised, one pinned staging reused as the loop
+      reuses it; unpacked on the card it equals ``pipeline.device_batch``;
+    - ``cli.train.main`` for ``FILE_STEPS`` steps with a save every
+      ``FILE_SAVE_EVERY``, into a temporary output directory, counted:
+      exactly ``expected`` launches per step; finite losses; every
+      checkpoint with its DONE marker; the result-file blocks and summary
+      lines of each save;
+    - ``model.ckpt-4`` restored onto the card: the bits of the state the
+      run ended with;
+    - two runs resumed from ``model.ckpt-2`` to step 4 under
+      ``deterministic``, counted: the same bits.
+
+    The directory (a few GB of checkpoints at the flagship's width) is
+    removed.  Returns the numbers."""
+    from cikm2020_dmt_torch.cli import train as cli_train
+    from cikm2020_dmt_torch.core.checkpoint import CheckpointManager
+    from cikm2020_dmt_torch.core.config import DMTConfig
+    from cikm2020_dmt_torch.data import native
+    from cikm2020_dmt_torch.data.pipeline import batch_stream, device_batch
+    from cikm2020_dmt_torch.data.vocab import VocabSet
+    from cikm2020_dmt_torch.train.loop import Staging, Trainer
+
+    cfg = dataclasses.replace(cfg, validate_step=FILE_SAVE_EVERY)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        data = os.path.join(d, "data")
+        os.makedirs(data)
+        t0 = time.perf_counter()
+        parts = write_shards(cfg, data, FILE_SHARDS, TRAIN_BATCH, SEED + 400)
+        out["write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        native.load_library()
+        out["build_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        batches = list(native.native_batch_stream(cfg, data + "/",
+                                                  TRAIN_BATCH))
+        out["read_s"] = time.perf_counter() - t0
+        n = FILE_SHARDS * TRAIN_BATCH
+        out["host_examples_per_s"] = n / out["read_s"]
+        if len(batches) != FILE_SHARDS:
+            raise AssertionError(f"{len(batches)} native batches, want "
+                                 f"{FILE_SHARDS}")
+        vocabs = VocabSet(cfg.embeddings + cfg.embeddings_bias,
+                          cfg.vocab_path)
+        for b, exs in zip(batches, parts):
+            check_file_batch(cfg, b, exs, vocabs)
+        t0 = time.perf_counter()
+        py = list(batch_stream(cfg, data + "/", TRAIN_BATCH))
+        out["python_read_s"] = time.perf_counter() - t0
+        for b, p in zip(batches, py):
+            bad = [k for k, v in p.arrays.items()
+                   if not np.array_equal(v, b[k]) or v.dtype != b[k].dtype]
+            if bad or set(b.arrays) != set(p.arrays) or \
+                    b.headers != p.headers:
+                raise AssertionError(f"native batch differs from the Python "
+                                     f"path's: {bad}")
+        del parts, py
+
+        # ---- the packed transfer ----
+        tr = Trainer(cfg, device=dev)
+        staging = Staging()
+        for b in batches:
+            got = Trainer.unpack_device_batch(tr.device_batch(b, staging),
+                                              tr._pack_layout)
+            want = device_batch(b, dev)
+            bad = [k for k, v in want.items()
+                   if got[k].dtype != v.dtype or not torch.equal(got[k], v)]
+            if bad or set(got) != set(want):
+                raise AssertionError(f"packed device_batch differs: {bad}")
+        torch.cuda.synchronize()
+        rounds = 3
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            for b in batches:
+                tr.device_batch(b, staging)
+        torch.cuda.synchronize()
+        out["device_batch_ms"] = ((time.perf_counter() - t0) * 1e3
+                                  / (rounds * len(batches)))
+        del tr, staging, got, want
+
+        # ---- cli.train over the files ----
+        output = os.path.join(d, "out")
+        conf = os.path.join(d, "dmt.conf")
+        write_conf(cfg, conf, data + "/", output)
+        read = DMTConfig.from_ini(conf)
+        if dataclasses.replace(read, output_path="", summary_path="",
+                               train_data_path="",
+                               train_data_stat_path="") != dataclasses.replace(
+                cfg, output_path="", summary_path="", train_data_path="",
+                train_data_stat_path=""):
+            raise AssertionError("the written config does not read back as "
+                                 "the phase's config")
+        argv = ["--conf_file", conf, "--log_every", "1", "--device",
+                str(dev)]
+
+        def run(extra, steps):
+            reset_counts()
+            t0 = time.perf_counter()
+            trainer = cli_train.main(argv + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            want = {k: expected.get(k, 0) * steps for k in counts}
+            if counts != want:
+                raise AssertionError(f"files phase: launches {counts}, want "
+                                     f"{want} ({steps} steps)")
+            return trainer, counts, wall
+
+        tr, out["counts"], out["train_s"] = run(
+            ["--max_steps", str(FILE_STEPS)], FILE_STEPS)
+        mgr = CheckpointManager(read.model_path)
+        saves = list(range(FILE_SAVE_EVERY, FILE_STEPS + 1, FILE_SAVE_EVERY))
+        if tr.last_step != FILE_STEPS or mgr.all_steps() != saves or \
+                not all(mgr.has_step(s) for s in saves):
+            raise AssertionError(f"files phase: last step {tr.last_step}, "
+                                 f"checkpoints {mgr.all_steps()}, want "
+                                 f"{saves} with DONE markers")
+        with open(read.train_result_path) as f:
+            blocks = [line for line in f.read().splitlines()
+                      if line.startswith(">> iter_steps:")]
+        with open(os.path.join(read.summary_path, "train.jsonl")) as f:
+            summary = [json.loads(line) for line in f]
+        values = [v for s in summary for k, v in s.items()
+                  if k not in ("step", "time")]
+        if blocks != [f">> iter_steps:{s}" for s in saves] or \
+                [s["step"] for s in summary] != saves or \
+                not np.isfinite(values).all():
+            raise AssertionError(f"files phase: result blocks {blocks}, "
+                                 f"summary {summary}")
+        out["save_s"] = dict(tr.save_seconds)
+        out["losses"] = [s["loss"] for s in summary]
+        out["metrics"] = summary[-1]
+
+        # ---- restore: the bits of the state the run ended with ----
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = mgr.restore(FILE_STEPS, dev)
+        torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t0
+        out["leaves"] = _same_bits(restored, tr.state,
+                                   f"model.ckpt-{FILE_STEPS} restored")
+        del restored, tr
+        torch.cuda.empty_cache()
+
+        # ---- two resumed runs: the same bits ----
+        states, out["resume_s"] = [], []
+        for _ in range(2):
+            with deterministic():
+                t, counts, wall = run(
+                    ["--max_steps", str(FILE_STEPS), "--model_ckpt",
+                     f"model.ckpt-{FILE_SAVE_EVERY}"],
+                    FILE_STEPS - FILE_SAVE_EVERY)
+            states.append(t.state)
+            out["resume_s"].append(wall)
+            del t
+        _same_bits(states[0], states[1], "two resumed runs")
+        out["resume_counts"] = counts
+        del states
+    torch.cuda.empty_cache()
+    card = (card_name_and_limit() if torch.device(dev).type == "cuda"
+            else "the CPU")
+    log(f"files phase on {card} ({os.cpu_count()} host cores, "
+        f"{len(os.sched_getaffinity(0))} available to this process): "
+        f"{FILE_SHARDS} shards "
+        f"of {TRAIN_BATCH} examples written in {out['write_s']:.2f}s; the "
+        f"C++ assembler built in {out['build_s']:.2f}s, read them in "
+        f"{out['read_s']:.3f}s: {out['host_examples_per_s']:.1f} examples/s "
+        f"on the host (the Python path: {python_eps:.1f} in the data phase, "
+        f"{n / out['python_read_s']:.1f} on these files; the step: "
+        f"{step_eps:.1f}), batches as written and equal to the Python "
+        f"path's; packed device_batch {out['device_batch_ms']:.3f} ms a "
+        f"batch (host clock, synchronised; unpacked {unpacked_ms:.3f} ms in "
+        f"the data phase)")
+    log(f"files phase on {card}: cli.train {FILE_STEPS} steps in "
+        f"{out['train_s']:.2f}s, launches {json.dumps(out['counts'])}, "
+        f"losses {out['losses']}, saves {json.dumps(out['save_s'])} s; "
+        f"restore {out['restore_s']:.2f}s, {out['leaves']} leaves bit-equal "
+        f"to the run's state; two runs resumed from "
+        f"model.ckpt-{FILE_SAVE_EVERY} in "
+        f"{', '.join(f'{s:.2f}' for s in out['resume_s'])}s, bit-equal")
+    out["python_file_examples_per_s"] = n / out["python_read_s"]
+    return out
 
 
 def _entry(name, source, replaces, launches, err, ms, plain, b, lib, **kw):
@@ -2178,8 +2446,19 @@ def main() -> int:
     log(f"data phase: wall {time.perf_counter() - t_d:.1f}s")
     p50 = serve["p50"]
     data_eps = (data["host_examples_per_s"], data["step_examples_per_s"])
+    unpacked_ms = data["device_batch_ms"]
     del train, col, serve, data
     torch.cuda.empty_cache()
+
+    # ---- training from files: the C++ assembler, cli.train, checkpoints ----
+    t_f = time.perf_counter()
+    files = files_phase(cfg, dev, EXPECTED_PER_STEP["dmt"], data_eps[0],
+                        unpacked_ms, data_eps[1])
+    for rec in [fwd, bwd, seg] + rows:
+        rec["launches_by_path"]["files"] = (
+            files["counts"][rec["name"]]
+            + 2 * files["resume_counts"][rec["name"]])
+    log(f"files phase: wall {time.perf_counter() - t_f:.1f}s")
     t_flag = time.perf_counter() - t_flag
 
     # ---- conf/dmt_2block.conf: 2+2 stacks, the attention kernels ----
@@ -2205,17 +2484,19 @@ def main() -> int:
         "train": train2["counts"]["attention_fwd"]}
     t_two = time.perf_counter() - t_two
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = card_name_and_limit()
     log(f"dmt: request p50 {p50:.3f} ms; training step "
         f"{step_ms:.3f} ms, {eps:.1f} examples/s at batch {TRAIN_BATCH}; "
         f"with DMT_BLOCK_SAVE=1 {save_train['step_ms']:.3f} ms, "
         f"{save_train['examples_per_s']:.1f} examples/s (without it in the "
         f"same phase {save_train['off_step_ms']:.3f} ms); Python data "
         f"path {data_eps[0]:.1f} examples/s on the host against the "
-        f"step's {data_eps[1]:.1f}; wall {t_flag:.1f}s")
+        f"step's {data_eps[1]:.1f}; C++ assembler "
+        f"{files['host_examples_per_s']:.1f} examples/s ({os.cpu_count()} "
+        f"host cores, {len(os.sched_getaffinity(0))} available), packed device_batch {files['device_batch_ms']:.3f} "
+        f"ms (unpacked {unpacked_ms:.3f}); save "
+        f"{max(files['save_s'].values()):.2f}s, restore "
+        f"{files['restore_s']:.2f}s; wall {t_flag:.1f}s")
     log(f"dmt_2block: request p50 {serve2['p50']:.3f} ms, p90 "
         f"{serve2['p90']:.3f} ms; eval {ev['ms_per_batch']:.3f} ms per "
         f"batch of {ev['batch']}, {ev['examples_per_s']:.1f} examples/s; "

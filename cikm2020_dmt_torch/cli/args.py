@@ -1,0 +1,88 @@
+"""Shared command-line flags (the JAX package's ``cli/args.py``, the
+reference's parse/parse.py flags) and what the entry points derive from
+them."""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import os
+
+from ..core.config import DMTConfig
+
+
+def build_parser(description: str) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("--conf_path", default="./conf/",
+                   help="config directory (reference parse.py)")
+    p.add_argument("--conf_file", default="dmt.conf",
+                   help="config file name, or a full path")
+    p.add_argument("--model_ckpt", default="model.ckpt-0",
+                   help="checkpoint name model.ckpt-<step>")
+    p.add_argument("--test_tag", default="", choices=["", "clk", "ord"],
+                   help="test split selector")
+    p.add_argument("--test_score_method", default="rel",
+                   choices=["rel", "ctr"],
+                   help="rel = relevance-only scores; ctr = bias-combined")
+    p.add_argument("--max_steps", type=int, default=None,
+                   help="override max_iter_step")
+    p.add_argument("--log_every", type=int, default=10)
+    p.add_argument("--device", default="cuda",
+                   help="torch device: the card by default, cpu for the "
+                        "plain PyTorch path")
+    # several processes (multi-GPU); one process when omitted
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of process 0")
+    return p
+
+
+def maybe_init_distributed(args: argparse.Namespace) -> None:
+    """One process runs on one device; more than one raises, since the
+    multi-GPU path is not ported yet."""
+    if args.num_processes and args.num_processes > 1:
+        raise NotImplementedError(
+            f"--num_processes {args.num_processes}: multi-GPU is not ported "
+            "to the PyTorch package yet; run one process on one device")
+
+
+def load_config(args: argparse.Namespace, **overrides) -> DMTConfig:
+    path = args.conf_file
+    if not os.path.exists(path):
+        path = os.path.join(args.conf_path, args.conf_file)
+    cfg = DMTConfig.from_ini(path, **overrides)
+    return apply_label_stats(cfg)
+
+
+def apply_label_stats(cfg: DMTConfig) -> DMTConfig:
+    """Caps the step budget from the train label-count stat file
+    (reference recsys_conf.py:139-151: one count per line; examples = their
+    sum; max_iter_step = epochs x examples / batch, one replica)."""
+    path = cfg.train_data_stat_path
+    if not path:
+        return cfg
+    candidates = [path] if os.path.isfile(path) else \
+        sorted(glob.glob(os.path.join(path, "part-*")) +
+               glob.glob(os.path.join(path, "stat*")))
+    for cand in candidates:
+        try:
+            with open(cand) as f:
+                counts = tuple(int(line.strip()) for line in f
+                               if line.strip())
+            if counts:
+                return cfg.recompute_max_steps(counts, num_replicas=1)
+        except (OSError, ValueError):
+            continue
+    return cfg
+
+
+def ckpt_step(name: str) -> int:
+    """Step from a model.ckpt-<N> name (reference run_dnn.py:119-122);
+    'current'/'0' -> 0."""
+    if "-" not in name:
+        return 0
+    try:
+        return int(name.rsplit("-", 1)[1])
+    except ValueError:
+        return 0

@@ -280,6 +280,10 @@ class DMTConfig:
         return os.path.join(self.output_path or ".", self.tag + ".model")
 
     @property
+    def train_result_path(self) -> str:
+        return os.path.join(self.output_path or ".", self.tag + ".train.result")
+
+    @property
     def labels(self) -> tuple[int, ...]:
         return tuple(l for l, _ in self.train_weight)
 
@@ -470,3 +474,14 @@ class DMTConfig:
         if overrides:
             cfg = cfg.replace(**overrides)
         return cfg
+
+    def recompute_max_steps(self, label_counts: tuple[int, ...],
+                            num_replicas: int = 1) -> "DMTConfig":
+        """Caps ``max_iter_step`` at epochs x examples / (batch x
+        replicas), the examples summed over the label-count stat file's
+        counts (reference recsys_conf.py:144-151)."""
+        total = sum(label_counts)
+        total_step = int(self.epoch_num * total
+                         / (self.batch_size * max(1, num_replicas)))
+        return self.replace(total_example_num=total,
+                            max_iter_step=min(self.max_iter_step, total_step))

@@ -16,20 +16,131 @@ moments), ``step`` and ``lazy_overflow`` (distinct row groups past the
 budget, cumulated; their gradient is skipped for that step).  A batch is a dict of
 tensors on the trainer's device, keyed like the reference's batch.  Only
 the flagship model's loss (``mmoe_transformer_unbias``) is ported.
+
+``Trainer.train`` is the chief's loop over files (JAX ``Trainer.train``):
+epochs of the native batch stream, each batch packed into two pinned host
+buffers and copied to the card on a side stream two batches ahead
+(``device_batch``, ``device_prefetch``), a checkpoint with its DONE marker,
+a result-file block and a summary line every ``validate_step`` steps, and
+resume or warm start.
 """
 
 from __future__ import annotations
 
+import collections
+import math
 import os
+import signal
+import time
+from typing import Iterator, Optional
 
+import numpy as np
 import torch
 
+from ..core.checkpoint import CheckpointManager
 from ..core.config import DMTConfig
-from ..metrics.streaming import task_metrics_update
+from ..core.logging import SummaryWriter, Throughput, log_line, log_to_file
+from ..data import pipeline
+from ..data.pipeline import Batch
+from ..metrics.streaming import (task_metrics_init, task_metrics_update,
+                                 task_metrics_values)
 from ..models.zoo import build_model
 from .lazy import build_lazy_plan, collect, lazy_adam_rows, make_overlay
 from .losses import multi_task_unbias_loss, scores_from_logits
 from .optim import adam_init, adam_update, piecewise_constant
+
+
+def make_input_stream(cfg: DMTConfig, path_spec: str, batch_size: int,
+                      native: bool = True, **kw) -> Iterator[Batch]:
+    """The batch stream the trainer reads: the C++ assembler's
+    (``data/native.py``), whose library is built here, so a failed build
+    raises now and not at the first batch.  There is no quiet fallback:
+    the Python stream (``data/pipeline.batch_stream``, the same batches)
+    runs only with ``native=False``."""
+    if not native:
+        kw.pop("with_headers", None)   # the native stream's knob
+        return pipeline.batch_stream(cfg, path_spec, batch_size, **kw)
+    from ..data.native import load_library, native_batch_stream
+    load_library()
+    return native_batch_stream(cfg, path_spec, batch_size, **kw)
+
+
+_KINDS = {np.dtype(np.float32): ("f32", torch.float32),
+          np.dtype(np.int32): ("i32", torch.int32)}
+
+
+def pack_layout(arrays: dict) -> dict:
+    """{kind: [(key, offset, shape), ...]}: where each array of a batch
+    lies in the flat buffer of its dtype (``f32``, ``i32``), keys sorted.
+    Each array is a contiguous run of its buffer, so the fields unpack as
+    contiguous views."""
+    layout: dict = {}
+    for k in sorted(arrays):
+        v = arrays[k]
+        if v.dtype not in _KINDS:
+            raise ValueError(f"batch array {k!r} has dtype {v.dtype}; the "
+                             "packed transfer takes float32 and int32")
+        fields = layout.setdefault(_KINDS[v.dtype][0], [])
+        off = fields[-1][1] + math.prod(fields[-1][2]) if fields else 0
+        fields.append((k, off, tuple(v.shape)))
+    return layout
+
+
+class Staging:
+    """The host buffers of one packed batch and the event recorded after
+    their last copy to the card: they are written again only once that
+    event has completed."""
+
+    def __init__(self):
+        self.host: dict[str, torch.Tensor] = {}
+        self.copied: Optional[torch.cuda.Event] = None
+
+
+class _StepSignals:
+    """SIGINT and SIGTERM (preemption) raise ``KeyboardInterrupt``, so the
+    loop saves an emergency checkpoint, but never inside a step: a step
+    updates the lazy tables in place, so a state cut in the middle of one
+    is a state no step produced.  A signal that arrives during a step is
+    raised when it ends (``step_done``).  Outside the main thread nothing
+    is installed."""
+
+    def __init__(self):
+        self.in_step = False
+        self.pending: Optional[int] = None
+        self.previous: dict = {}
+
+    def _handle(self, signum, frame):
+        if self.in_step:
+            self.pending = signum
+        else:
+            raise KeyboardInterrupt(f"signal {signum}")
+
+    def __enter__(self):
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            try:
+                self.previous[sig] = signal.signal(sig, self._handle)
+            except ValueError:   # not the main thread
+                pass
+        return self
+
+    def step_done(self) -> None:
+        self.in_step = False
+        if self.pending is not None:
+            sig, self.pending = self.pending, None
+            raise KeyboardInterrupt(f"signal {sig}")
+
+    def __exit__(self, *exc):
+        for sig, handler in self.previous.items():
+            signal.signal(sig, handler)
+        return False
+
+
+def dropout_seed(seed: int, step: int) -> int:
+    """The seed of step ``step``'s dropout generator, from ``(seed + 1,
+    step)`` (the JAX loop folds the step into one key): a run resumed at
+    step k draws the masks an uninterrupted run draws at step k."""
+    return int(np.random.SeedSequence([seed + 1, step])
+               .generate_state(1, np.uint64)[0])
 
 
 def _flatten(tree, out):
@@ -80,6 +191,10 @@ class Trainer:
         self.lazy_plan = build_lazy_plan(cfg)
         self.schedule = piecewise_constant(cfg.step_boundary,
                                            cfg.learning_rate)
+        self.ckpt = CheckpointManager(cfg.model_path)
+        self._pack_layout: Optional[dict] = None
+        self._copy_stream = None
+        self.save_seconds: dict[int, float] = {}
 
     def _dense(self, params: dict) -> dict:
         """The params minus the lazily updated tables (what dense Adam
@@ -110,8 +225,11 @@ class Trainer:
                    gen: torch.Generator):
         """One step; returns (state, metrics, loss).  The lazy tables and
         their moments are updated in place; the other leaves are new
-        tensors.  ``gen`` (on the trainer's device) drives dropout."""
+        tensors.  ``gen`` (on the trainer's device) drives dropout.  A
+        packed batch (``device_batch``) is unpacked first."""
         cfg = self.cfg
+        if any(k.startswith("__packed_") for k in batch):
+            batch = self.unpack_device_batch(batch, self._pack_layout)
         params = state["params"]
         cols = {t.name: collect(t, batch, params["emb"][t.name],
                                 cfg.dedup_budget_div)
@@ -169,3 +287,257 @@ class Trainer:
                 metrics, mask=batch["mask"], p_ctr=p_ctr, p_cvr=p_cvr,
                 loss=loss.detach(), weights=batch["valid"])
         return new_state, metrics, loss.detach()
+
+    # ------------------------------------------------------------------
+    def device_batch(self, batch: Batch, staging: Optional[Staging] = None,
+                     stream=None) -> dict:
+        """A host batch as tensors on the trainer's device.
+
+        ``cfg.unit_weights`` drops the ``__wts`` arrays (the model rebuilds
+        them from the lengths).  With ``cfg.packed_transfer`` (the default)
+        the arrays are packed into one float32 and one int32 flat buffer
+        (``pack_layout``), straight into pinned host memory, and each
+        buffer goes to the card by one ``non_blocking`` copy on ``stream``
+        (default: the current stream); ``train_step`` unpacks them.  The
+        host buffers are ``staging``'s, reused once its last copy has
+        completed, or new ones.  Without packing, ``pipeline.device_batch``
+        copies each array."""
+        arrays = batch.arrays
+        if self.cfg.unit_weights:
+            arrays = {k: v for k, v in arrays.items()
+                      if not k.endswith(pipeline.WTS)}
+        if not self.cfg.packed_transfer:
+            return pipeline.device_batch(Batch(arrays, batch.headers),
+                                         self.device)
+        layout = pack_layout(arrays)
+        if self._pack_layout is None:
+            self._pack_layout = layout
+        elif layout != self._pack_layout:
+            raise ValueError("device_batch: the batch's arrays differ from "
+                             "the first batch's (the packed layout)")
+        cuda = self.device.type == "cuda"
+        staging = staging or Staging()
+        if staging.copied is not None:
+            staging.copied.synchronize()
+        out = {}
+        stream = stream or (torch.cuda.current_stream(self.device)
+                            if cuda else None)
+        for kind, fields in layout.items():
+            host = staging.host.get(kind)
+            if host is None:
+                k, off, shape = fields[-1]
+                host = torch.empty(off + math.prod(shape),
+                                   dtype=_KINDS[arrays[k].dtype][1],
+                                   pin_memory=cuda)
+                staging.host[kind] = host
+            np.concatenate([arrays[k].reshape(-1) for k, _, _ in fields],
+                           out=host.numpy())
+            if cuda:
+                with torch.cuda.stream(stream):
+                    out["__packed_" + kind] = host.to(self.device,
+                                                      non_blocking=True)
+            else:
+                out["__packed_" + kind] = host
+        if cuda:
+            staging.copied = torch.cuda.Event()
+            staging.copied.record(stream)
+            main = torch.cuda.current_stream(self.device)
+            if stream != main:
+                # allocated on the copy stream, read on the step's: the
+                # allocator must not hand the memory out again before the
+                # step's reads are done
+                for t in out.values():
+                    t.record_stream(main)
+        return out
+
+    @staticmethod
+    def unpack_device_batch(batch: dict, layout: dict) -> dict:
+        """The packed batch's fields as views of its buffers, keyed and
+        typed as the unpacked batch (float32 and int32 tensors)."""
+        out = {k: v for k, v in batch.items()
+               if not k.startswith("__packed_")}
+        for kind, fields in layout.items():
+            buf = batch["__packed_" + kind]
+            for k, off, shape in fields:
+                out[k] = buf[off:off + math.prod(shape)].view(shape)
+        return out
+
+    def device_prefetch(self, data_iter: Iterator[Batch], depth: int = 2
+                        ) -> Iterator[tuple[Batch, dict]]:
+        """(host batch, device batch) pairs with ``depth`` batches in flight:
+        on the card each batch is packed into one of ``depth`` pinned
+        stagings and copied on a side stream, and the step's stream waits
+        on the copy's event only when the batch is handed out, so a copy
+        overlaps the steps before it."""
+        cuda = self.device.type == "cuda"
+        if cuda and self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        slots = [Staging() if cuda else None for _ in range(depth)]
+        queue: collections.deque = collections.deque()
+
+        def ready(item):
+            batch, dev, copied = item
+            if copied is not None:
+                torch.cuda.current_stream(self.device).wait_event(copied)
+            return batch, dev
+
+        for i, batch in enumerate(data_iter):
+            slot = slots[i % depth]
+            dev = self.device_batch(batch, slot, self._copy_stream)
+            queue.append((batch, dev, slot.copied if slot else None))
+            if len(queue) >= depth:
+                yield ready(queue.popleft())
+        while queue:
+            yield ready(queue.popleft())
+
+    # ------------------------------------------------------------------
+    def train(self, data_path: Optional[str] = None,
+              max_steps: Optional[int] = None,
+              resume_step: Optional[int] = None,
+              log_every: int = 10,
+              data_iter: Optional[Iterator[Batch]] = None,
+              profile_dir: Optional[str] = None,
+              profile_steps: tuple[int, int] = (10, 15)) -> dict:
+        """The chief's loop; returns the final streaming metric values.
+
+        Resumes from ``model.ckpt-{resume_step}`` when it is complete (the
+        data restarts from the files' beginning), else starts from
+        ``cfg.seed`` and warm-starts ``cfg.update_emb``.  Reads
+        ``cfg.epoch_num`` shuffled epochs of ``data_path`` (default
+        ``cfg.train_data_path``) through the native stream, or
+        ``data_iter``, up to ``max_steps`` (default ``cfg.max_iter_step``).
+        Logs every ``log_every`` steps; saves every ``cfg.validate_step``
+        steps and at the end; saves at the step reached on Ctrl-C or
+        SIGTERM, then re-raises.  Traces steps ``profile_steps`` (counted
+        from the start) into ``profile_dir`` or ``$DMT_PROFILE_DIR`` as a
+        Chrome trace.  Afterwards ``last_step`` and ``state`` hold the step
+        reached and the train state."""
+        cfg = self.cfg
+        data_path = data_path or cfg.train_data_path
+        max_steps = max_steps if max_steps is not None else cfg.max_iter_step
+
+        start_step = 0
+        if resume_step is not None and self.ckpt.has_step(resume_step):
+            state = self.ckpt.restore(resume_step, self.device)
+            start_step = resume_step
+            log_line(f"resumed from model.ckpt-{resume_step}")
+        else:
+            state = self.init_state(
+                torch.Generator(device=self.device).manual_seed(cfg.seed))
+            if cfg.update_emb:
+                # warm-start pretrained tables (reference
+                # run_dnn.py:298-299)
+                from .warmstart import (parse_update_emb,
+                                        warm_start_embeddings)
+                state["params"] = warm_start_embeddings(
+                    state["params"], parse_update_emb(cfg.update_emb))
+                log_line(f"warm-started embeddings: {cfg.update_emb}")
+
+        own_iter = data_iter is None
+        if own_iter:
+            # training never reads the row headers
+            data_iter = pipeline.prefetch(make_input_stream(
+                cfg, data_path, cfg.batch_size, epochs=cfg.epoch_num,
+                shuffle=True, with_headers=False))
+
+        metrics = task_metrics_init(self.device)
+        meter = Throughput()
+        summary = (SummaryWriter(cfg.summary_path, "train")
+                   if cfg.summary_path else None)
+        gen = torch.Generator(device=self.device)
+        profile_dir = profile_dir or os.environ.get("DMT_PROFILE_DIR")
+        prof = None
+        step = start_step
+        eps = 0.0
+        signals = _StepSignals()
+        try:
+            with signals:
+                for batch, dev_batch in self.device_prefetch(data_iter):
+                    if step >= max_steps:
+                        break
+                    if profile_dir and step - start_step == profile_steps[0]:
+                        prof = self._start_profile()
+                    if prof is not None and \
+                            step - start_step == profile_steps[1]:
+                        self._stop_profile(prof, profile_dir, step)
+                        prof = None
+                    gen.manual_seed(dropout_seed(cfg.seed, step))
+                    signals.in_step = True
+                    state, metrics, loss = self.train_step(
+                        state, metrics, dev_batch, gen)
+                    step += 1
+                    signals.step_done()
+                    step_time, eps = meter.tick(batch.size)
+                    if step % log_every == 0 or step == max_steps:
+                        self._log_step(step, state, metrics, loss, eps,
+                                       step_time)
+                    if step % cfg.validate_step == 0 or step == max_steps:
+                        self._save(state, step, metrics)
+                        if summary is not None:
+                            vals = task_metrics_values(metrics)
+                            vals["examples_per_sec"] = eps
+                            summary.scalars(step, vals)
+        except KeyboardInterrupt:
+            # an interrupted run resumes from --model_ckpt model.ckpt-<step>
+            if step != start_step and not self.ckpt.has_step(step):
+                log_line(f"interrupted at step {step}; saving emergency "
+                         "ckpt")
+                self._save(state, step, metrics)
+            raise
+        finally:
+            if prof is not None:
+                self._stop_profile(prof, profile_dir, step)
+            if own_iter:
+                data_iter.close()
+        if step != start_step and not self.ckpt.has_step(step):
+            self._save(state, step, metrics)
+        self.last_step = step
+        self.state = state
+        return task_metrics_values(metrics)
+
+    def _log_step(self, step, state, metrics, loss, eps, step_time) -> None:
+        """The JAX loop's metric line; the only place the loop waits for
+        the card (``loss``, ``lazy_overflow``, the metrics)."""
+        vals = task_metrics_values(metrics)
+        ovf = ""
+        overflow = int(state["lazy_overflow"])
+        if overflow > 0:
+            ovf = (f" | LAZY-OVERFLOW {overflow} id-grads skipped (lower "
+                   "dedup_budget_div)")
+        log_line(
+            f"step {step} | loss {float(loss):.6f} | "
+            f"clk p/r/auc {vals['click_precision']:.4f}/"
+            f"{vals['click_recall']:.4f}/{vals['click_auc']:.4f} | "
+            f"ord p/r/auc {vals['order_precision']:.4f}/"
+            f"{vals['order_recall']:.4f}/{vals['order_auc']:.4f} | "
+            f"{eps:.0f} ex/s ({step_time * 1000:.0f} ms/step)" + ovf)
+
+    def _start_profile(self):
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, profile_dir: str, step: int) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir, f"train-step{step}.trace.json")
+        prof.export_chrome_trace(path)
+        log_line(f"profiler trace written to {path}")
+
+    def _save(self, state: dict, step: int, metrics) -> None:
+        """``model.ckpt-{step}`` with its DONE marker, and the train
+        metrics appended to ``cfg.train_result_path``."""
+        t0 = time.perf_counter()
+        self.ckpt.save(step, state)
+        self.save_seconds[step] = time.perf_counter() - t0
+        vals = task_metrics_values(metrics)
+        lines = [f">> iter_steps:{step}"] + [
+            f"train_{k}:{v}" for k, v in vals.items()]
+        log_to_file("\n".join(lines), self.cfg.train_result_path)
+        log_line(f"saved model.ckpt-{step} (+DONE marker) in "
+                 f"{self.save_seconds[step]:.2f}s")

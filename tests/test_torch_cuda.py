@@ -699,3 +699,68 @@ def test_segsum_repeats_bit_for_bit_on_card(D, dtype, cuda_device):
     second = sr.sorted_segment_sum_rows(g, order, seg, num)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_packed_transfer_and_prefetch_on_card(cuda_device):
+    """``Trainer.device_prefetch`` at the flagship's batch: each batch on
+    the card equals ``Trainer.unpack_device_batch`` of the CPU pack.
+
+    - A pinned staging is written again only after its last copy has
+      completed: with the copy stream held back by a sleep, six batches
+      through two stagings still arrive intact (a staging overwritten
+      early would send a later batch's bytes).
+    - The copies run on their own stream: the next batch's copy completes
+      while the step's stream is still busy."""
+    from pathlib import Path
+
+    import chip_smoke as cs
+    from cikm2020_dmt_torch.core.config import DMTConfig
+    from cikm2020_dmt_torch.data.pipeline import Batch
+    from cikm2020_dmt_torch.train.loop import Trainer
+
+    cfg = DMTConfig.from_ini(str(Path(__file__).resolve().parent.parent
+                                 / "conf" / "dmt.conf"))
+    batches = [Batch({k: v.numpy() for k, v in
+                      cs.synthetic_batch(cfg, 2048, s, "cpu").items()})
+               for s in range(6)]
+    cpu = Trainer(cfg, device="cpu")
+    want = [Trainer.unpack_device_batch(cpu.device_batch(b), cpu._pack_layout)
+            for b in batches]
+    cycles_per_ms = cs._sleep_cycles_per_ms()
+
+    def check(tr, got):
+        assert [b for b, _ in got] == batches
+        for (_, dev), w in zip(got, want):
+            assert set(dev) == {"__packed_f32", "__packed_i32"}
+            out = Trainer.unpack_device_batch(dev, tr._pack_layout)
+            assert set(out) == set(w)
+            for k, v in w.items():
+                assert out[k].device.type == "cuda" and \
+                    out[k].dtype == v.dtype
+                assert torch.equal(out[k].cpu(), v), k
+
+    # the copy stream held back: every staging waits for its last copy
+    tr = Trainer(cfg, device=cuda_device)
+    tr._copy_stream = torch.cuda.Stream(cuda_device)
+    with torch.cuda.stream(tr._copy_stream):
+        torch.cuda._sleep(int(cycles_per_ms * 100))
+    got = list(tr.device_prefetch(iter(batches)))
+    torch.cuda.synchronize()
+    check(tr, got)
+
+    # the step's stream held back: the copies do not wait for it
+    tr = Trainer(cfg, device=cuda_device)
+    feed = tr.device_prefetch(iter(batches))
+    got = [next(feed)]                     # batches 0 and 1 copied
+    busy_ms = 200.0
+    torch.cuda._sleep(int(cycles_per_ms * busy_ms))
+    t0 = cs.time.perf_counter()
+    got.append(next(feed))                 # batch 2 packed and copied
+    tr._copy_stream.synchronize()
+    copy_ms = (cs.time.perf_counter() - t0) * 1e3
+    step_busy = not torch.cuda.current_stream().query()
+    got += list(feed)
+    torch.cuda.synchronize()
+    assert step_busy and copy_ms < busy_ms / 2, copy_ms
+    check(tr, got)
