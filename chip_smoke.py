@@ -88,6 +88,18 @@ the result-file and summary lines), ``model.ckpt-4`` restored bit-equal
 to the state the run ended with, and two runs resumed from
 ``model.ckpt-2`` under ``deterministic`` bit-equal to each other.
 
+Evaluating, testing and serving that checkpoint as a user runs them
+(``eval_serve_phase``, after the files phase, on its shards and its
+``model.ckpt-4``): ``cli.valid --once`` and ``cli.test --grid_search``
+with their result files checked, ``run_eval`` over the files timed and
+one of its batches held against the port's CPU path, ``cli.export`` of a
+float32 and an int8 bundle, ``load_scorer`` of each scoring the three
+requests assembled from raw strings by ``ServingPreprocessor`` (float32
+against a ``Scorer`` over the checkpoint, int8 against float32), request
+latency through the preprocessor, and ``ScorerQueue`` under 4 threads;
+exactly 3 block-forward launches per eval batch and per forward of a
+request or a queue's group, and nothing else.
+
 The segment sum (``segsum_phase``) is also launched twice on each of its
 inputs: the two results must be the same bits.
 
@@ -512,14 +524,22 @@ def synthetic_batch(cfg, n: int, seed: int, device) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
 
 
+SESSION = 12          # examples of one session in synthetic headers
+USER_SESSIONS = 3     # sessions of one user
+
+
 def synthetic_examples(cfg, n: int, seed: int) -> list[dict]:
     """``n`` Examples of ``cfg``'s schema (feature name -> values, as
     ``data/example.py`` ``encode_example`` takes them) from a numpy seed:
     normal dense features, a label and its one-hot mask, a tab-separated
     header of ``cfg.header_schema``'s fields whose pos and page run past
-    the propensity tables' last entries, and per id feature the lengths
-    ``synthetic_batch`` draws (1..max_len) of Zipf(1.3) ids written as
-    decimal strings; timestamp features carry raw values below 10**7."""
+    the propensity tables' last entries, whose label is the example's,
+    whose sid numbers sessions of ``SESSION`` consecutive examples and
+    whose uuid numbers users of ``USER_SESSIONS`` sessions (``seed`` keeps
+    them apart between calls; the offline metrics group by them), and per
+    id feature the lengths ``synthetic_batch`` draws (1..max_len) of
+    Zipf(1.3) ids written as decimal strings; timestamp features carry raw
+    values below 10**7."""
     from cikm2020_dmt_torch.data.schema import FeatureSchema
 
     rng = np.random.default_rng(seed)
@@ -542,6 +562,10 @@ def synthetic_examples(cfg, n: int, seed: int) -> list[dict]:
         header = [b"%s%d" % (name.encode(), i) for name in cfg.header_schema]
         header[where["pos"]] = b"%d" % pos[i]
         header[where["page"]] = b"%d" % page[i]
+        session = seed * n + i // SESSION
+        header[where["label"]] = b"%d" % labels[i]
+        header[where["sid"]] = b"s%d" % session
+        header[where["uuid"]] = b"u%d" % (session // USER_SESSIONS)
         mask = [0.0] * len(classes)
         mask[classes.index(int(labels[i]))] = 1.0
         ex = {"features": dense[i].tolist(), "label": [float(labels[i])],
@@ -924,11 +948,13 @@ FILE_STEPS = 4
 FILE_SAVE_EVERY = 2
 
 
-def write_conf(cfg, path: str, data_path: str, output_path: str) -> None:
-    """``conf/dmt.conf`` with ``cfg``'s widths, tables, batch size, save
-    cadence and transformer dropout, its data read from ``data_path`` and
-    its output (checkpoints, result file, summaries) under
-    ``output_path``: a config file that ``cli.train`` reads as ``cfg``."""
+def write_conf(cfg, path: str, data_path: str, output_path: str,
+               **paths) -> None:
+    """``conf/dmt.conf`` with ``cfg``'s widths, tables, batch sizes, save
+    cadence, transformer dropout and int8 export threshold, its training
+    data read from ``data_path``, its output (checkpoints, result files,
+    summaries) under ``output_path`` and any other ``[path]`` entry set by
+    ``paths``: a config file that the CLIs read as ``cfg``."""
     import configparser
 
     cp = configparser.ConfigParser()
@@ -937,6 +963,8 @@ def write_conf(cfg, path: str, data_path: str, output_path: str) -> None:
              "hidden_units_bottom": cfg.hidden_units_bottom,
              "hidden_units_task": cfg.hidden_units_task,
              "num_experts": cfg.num_experts, "batch_size": cfg.batch_size,
+             "validation_batch_size": cfg.validation_batch_size,
+             "test_batch_size": cfg.test_batch_size,
              "validate_step": cfg.validate_step,
              "transformer_dropout_rate": cfg.transformer.dropout_rate}
     for k, v in model.items():
@@ -957,6 +985,9 @@ def write_conf(cfg, path: str, data_path: str, output_path: str) -> None:
     cp["path"]["summary_path"] = os.path.join(output_path, "summary")
     cp["path"]["train_data_path"] = data_path
     cp["path"]["train_data_stat_path"] = ""
+    for k, v in paths.items():
+        cp["path"][k] = v
+    cp["export_model"]["export_int8_rows"] = str(cfg.export_int8_rows)
     with open(path, "w") as f:
         cp.write(f)
 
@@ -974,7 +1005,7 @@ def _same_bits(a: dict, b: dict, what: str) -> int:
 
 
 def files_phase(cfg, dev, expected: dict, python_eps: float,
-                unpacked_ms: float, step_eps: float) -> dict:
+                unpacked_ms: float, step_eps: float, d: str) -> dict:
     """Training from files as a user runs it, at ``cfg``'s width:
 
     - ``FILE_SHARDS`` TFRecord shards of ``TRAIN_BATCH`` examples written
@@ -995,8 +1026,10 @@ def files_phase(cfg, dev, expected: dict, python_eps: float,
     - two runs resumed from ``model.ckpt-2`` to step 4 under
       ``deterministic``, counted: the same bits.
 
-    The directory (a few GB of checkpoints at the flagship's width) is
-    removed.  Returns the numbers."""
+    Everything is written under the directory ``d`` (a few GB of
+    checkpoints at the flagship's width), which the caller removes; the
+    eval and serving phase reads the shards and checkpoints from there.
+    Returns the numbers and the paths (``data``, ``conf``)."""
     from cikm2020_dmt_torch.cli import train as cli_train
     from cikm2020_dmt_torch.core.checkpoint import CheckpointManager
     from cikm2020_dmt_torch.core.config import DMTConfig
@@ -1007,140 +1040,139 @@ def files_phase(cfg, dev, expected: dict, python_eps: float,
 
     cfg = dataclasses.replace(cfg, validate_step=FILE_SAVE_EVERY)
     out = {}
-    with tempfile.TemporaryDirectory() as d:
-        data = os.path.join(d, "data")
-        os.makedirs(data)
-        t0 = time.perf_counter()
-        parts = write_shards(cfg, data, FILE_SHARDS, TRAIN_BATCH, SEED + 400)
-        out["write_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        native.load_library()
-        out["build_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        batches = list(native.native_batch_stream(cfg, data + "/",
-                                                  TRAIN_BATCH))
-        out["read_s"] = time.perf_counter() - t0
-        n = FILE_SHARDS * TRAIN_BATCH
-        out["host_examples_per_s"] = n / out["read_s"]
-        if len(batches) != FILE_SHARDS:
-            raise AssertionError(f"{len(batches)} native batches, want "
-                                 f"{FILE_SHARDS}")
-        vocabs = VocabSet(cfg.embeddings + cfg.embeddings_bias,
-                          cfg.vocab_path)
-        for b, exs in zip(batches, parts):
-            check_file_batch(cfg, b, exs, vocabs)
-        t0 = time.perf_counter()
-        py = list(batch_stream(cfg, data + "/", TRAIN_BATCH))
-        out["python_read_s"] = time.perf_counter() - t0
-        for b, p in zip(batches, py):
-            bad = [k for k, v in p.arrays.items()
-                   if not np.array_equal(v, b[k]) or v.dtype != b[k].dtype]
-            if bad or set(b.arrays) != set(p.arrays) or \
-                    b.headers != p.headers:
-                raise AssertionError(f"native batch differs from the Python "
-                                     f"path's: {bad}")
-        del parts, py
+    data = os.path.join(d, "data")
+    os.makedirs(data)
+    t0 = time.perf_counter()
+    parts = write_shards(cfg, data, FILE_SHARDS, TRAIN_BATCH, SEED + 400)
+    out["write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native.load_library()
+    out["build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batches = list(native.native_batch_stream(cfg, data + "/",
+                                              TRAIN_BATCH))
+    out["read_s"] = time.perf_counter() - t0
+    n = FILE_SHARDS * TRAIN_BATCH
+    out["host_examples_per_s"] = n / out["read_s"]
+    if len(batches) != FILE_SHARDS:
+        raise AssertionError(f"{len(batches)} native batches, want "
+                             f"{FILE_SHARDS}")
+    vocabs = VocabSet(cfg.embeddings + cfg.embeddings_bias,
+                      cfg.vocab_path)
+    for b, exs in zip(batches, parts):
+        check_file_batch(cfg, b, exs, vocabs)
+    t0 = time.perf_counter()
+    py = list(batch_stream(cfg, data + "/", TRAIN_BATCH))
+    out["python_read_s"] = time.perf_counter() - t0
+    for b, p in zip(batches, py):
+        bad = [k for k, v in p.arrays.items()
+               if not np.array_equal(v, b[k]) or v.dtype != b[k].dtype]
+        if bad or set(b.arrays) != set(p.arrays) or \
+                b.headers != p.headers:
+            raise AssertionError(f"native batch differs from the Python "
+                                 f"path's: {bad}")
+    del parts, py
 
-        # ---- the packed transfer ----
-        tr = Trainer(cfg, device=dev)
-        staging = Staging()
+    # ---- the packed transfer ----
+    tr = Trainer(cfg, device=dev)
+    staging = Staging()
+    for b in batches:
+        got = Trainer.unpack_device_batch(tr.device_batch(b, staging),
+                                          tr._pack_layout)
+        want = device_batch(b, dev)
+        bad = [k for k, v in want.items()
+               if got[k].dtype != v.dtype or not torch.equal(got[k], v)]
+        if bad or set(got) != set(want):
+            raise AssertionError(f"packed device_batch differs: {bad}")
+    torch.cuda.synchronize()
+    rounds = 3
+    t0 = time.perf_counter()
+    for _ in range(rounds):
         for b in batches:
-            got = Trainer.unpack_device_batch(tr.device_batch(b, staging),
-                                              tr._pack_layout)
-            want = device_batch(b, dev)
-            bad = [k for k, v in want.items()
-                   if got[k].dtype != v.dtype or not torch.equal(got[k], v)]
-            if bad or set(got) != set(want):
-                raise AssertionError(f"packed device_batch differs: {bad}")
-        torch.cuda.synchronize()
-        rounds = 3
+            tr.device_batch(b, staging)
+    torch.cuda.synchronize()
+    out["device_batch_ms"] = ((time.perf_counter() - t0) * 1e3
+                              / (rounds * len(batches)))
+    del tr, staging, got, want
+
+    # ---- cli.train over the files ----
+    output = os.path.join(d, "out")
+    conf = os.path.join(d, "dmt.conf")
+    write_conf(cfg, conf, data + "/", output)
+    read = DMTConfig.from_ini(conf)
+    if dataclasses.replace(read, output_path="", summary_path="",
+                           train_data_path="",
+                           train_data_stat_path="") != dataclasses.replace(
+            cfg, output_path="", summary_path="", train_data_path="",
+            train_data_stat_path=""):
+        raise AssertionError("the written config does not read back as "
+                             "the phase's config")
+    argv = ["--conf_file", conf, "--log_every", "1", "--device",
+            str(dev)]
+
+    def run(extra, steps):
+        reset_counts()
         t0 = time.perf_counter()
-        for _ in range(rounds):
-            for b in batches:
-                tr.device_batch(b, staging)
+        trainer = cli_train.main(argv + extra)
         torch.cuda.synchronize()
-        out["device_batch_ms"] = ((time.perf_counter() - t0) * 1e3
-                                  / (rounds * len(batches)))
-        del tr, staging, got, want
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        want = {k: expected.get(k, 0) * steps for k in counts}
+        if counts != want:
+            raise AssertionError(f"files phase: launches {counts}, want "
+                                 f"{want} ({steps} steps)")
+        return trainer, counts, wall
 
-        # ---- cli.train over the files ----
-        output = os.path.join(d, "out")
-        conf = os.path.join(d, "dmt.conf")
-        write_conf(cfg, conf, data + "/", output)
-        read = DMTConfig.from_ini(conf)
-        if dataclasses.replace(read, output_path="", summary_path="",
-                               train_data_path="",
-                               train_data_stat_path="") != dataclasses.replace(
-                cfg, output_path="", summary_path="", train_data_path="",
-                train_data_stat_path=""):
-            raise AssertionError("the written config does not read back as "
-                                 "the phase's config")
-        argv = ["--conf_file", conf, "--log_every", "1", "--device",
-                str(dev)]
+    tr, out["counts"], out["train_s"] = run(
+        ["--max_steps", str(FILE_STEPS)], FILE_STEPS)
+    mgr = CheckpointManager(read.model_path)
+    saves = list(range(FILE_SAVE_EVERY, FILE_STEPS + 1, FILE_SAVE_EVERY))
+    if tr.last_step != FILE_STEPS or mgr.all_steps() != saves or \
+            not all(mgr.has_step(s) for s in saves):
+        raise AssertionError(f"files phase: last step {tr.last_step}, "
+                             f"checkpoints {mgr.all_steps()}, want "
+                             f"{saves} with DONE markers")
+    with open(read.train_result_path) as f:
+        blocks = [line for line in f.read().splitlines()
+                  if line.startswith(">> iter_steps:")]
+    with open(os.path.join(read.summary_path, "train.jsonl")) as f:
+        summary = [json.loads(line) for line in f]
+    values = [v for s in summary for k, v in s.items()
+              if k not in ("step", "time")]
+    if blocks != [f">> iter_steps:{s}" for s in saves] or \
+            [s["step"] for s in summary] != saves or \
+            not np.isfinite(values).all():
+        raise AssertionError(f"files phase: result blocks {blocks}, "
+                             f"summary {summary}")
+    out["save_s"] = dict(tr.save_seconds)
+    out["losses"] = [s["loss"] for s in summary]
+    out["metrics"] = summary[-1]
 
-        def run(extra, steps):
-            reset_counts()
-            t0 = time.perf_counter()
-            trainer = cli_train.main(argv + extra)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = read_counts()
-            want = {k: expected.get(k, 0) * steps for k in counts}
-            if counts != want:
-                raise AssertionError(f"files phase: launches {counts}, want "
-                                     f"{want} ({steps} steps)")
-            return trainer, counts, wall
+    # ---- restore: the bits of the state the run ended with ----
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = mgr.restore(FILE_STEPS, dev)
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t0
+    out["leaves"] = _same_bits(restored, tr.state,
+                               f"model.ckpt-{FILE_STEPS} restored")
+    del restored, tr
+    torch.cuda.empty_cache()
 
-        tr, out["counts"], out["train_s"] = run(
-            ["--max_steps", str(FILE_STEPS)], FILE_STEPS)
-        mgr = CheckpointManager(read.model_path)
-        saves = list(range(FILE_SAVE_EVERY, FILE_STEPS + 1, FILE_SAVE_EVERY))
-        if tr.last_step != FILE_STEPS or mgr.all_steps() != saves or \
-                not all(mgr.has_step(s) for s in saves):
-            raise AssertionError(f"files phase: last step {tr.last_step}, "
-                                 f"checkpoints {mgr.all_steps()}, want "
-                                 f"{saves} with DONE markers")
-        with open(read.train_result_path) as f:
-            blocks = [line for line in f.read().splitlines()
-                      if line.startswith(">> iter_steps:")]
-        with open(os.path.join(read.summary_path, "train.jsonl")) as f:
-            summary = [json.loads(line) for line in f]
-        values = [v for s in summary for k, v in s.items()
-                  if k not in ("step", "time")]
-        if blocks != [f">> iter_steps:{s}" for s in saves] or \
-                [s["step"] for s in summary] != saves or \
-                not np.isfinite(values).all():
-            raise AssertionError(f"files phase: result blocks {blocks}, "
-                                 f"summary {summary}")
-        out["save_s"] = dict(tr.save_seconds)
-        out["losses"] = [s["loss"] for s in summary]
-        out["metrics"] = summary[-1]
-
-        # ---- restore: the bits of the state the run ended with ----
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        restored = mgr.restore(FILE_STEPS, dev)
-        torch.cuda.synchronize()
-        out["restore_s"] = time.perf_counter() - t0
-        out["leaves"] = _same_bits(restored, tr.state,
-                                   f"model.ckpt-{FILE_STEPS} restored")
-        del restored, tr
-        torch.cuda.empty_cache()
-
-        # ---- two resumed runs: the same bits ----
-        states, out["resume_s"] = [], []
-        for _ in range(2):
-            with deterministic():
-                t, counts, wall = run(
-                    ["--max_steps", str(FILE_STEPS), "--model_ckpt",
-                     f"model.ckpt-{FILE_SAVE_EVERY}"],
-                    FILE_STEPS - FILE_SAVE_EVERY)
-            states.append(t.state)
-            out["resume_s"].append(wall)
-            del t
-        _same_bits(states[0], states[1], "two resumed runs")
-        out["resume_counts"] = counts
-        del states
+    # ---- two resumed runs: the same bits ----
+    states, out["resume_s"] = [], []
+    for _ in range(2):
+        with deterministic():
+            t, counts, wall = run(
+                ["--max_steps", str(FILE_STEPS), "--model_ckpt",
+                 f"model.ckpt-{FILE_SAVE_EVERY}"],
+                FILE_STEPS - FILE_SAVE_EVERY)
+        states.append(t.state)
+        out["resume_s"].append(wall)
+        del t
+    _same_bits(states[0], states[1], "two resumed runs")
+    out["resume_counts"] = counts
+    del states
     torch.cuda.empty_cache()
     card = (card_name_and_limit() if torch.device(dev).type == "cuda"
             else "the CPU")
@@ -1164,6 +1196,389 @@ def files_phase(cfg, dev, expected: dict, python_eps: float,
         f"model.ckpt-{FILE_SAVE_EVERY} in "
         f"{', '.join(f'{s:.2f}' for s in out['resume_s'])}s, bit-equal")
     out["python_file_examples_per_s"] = n / out["python_read_s"]
+    out.update(data=data + "/", output=output)
+    return out
+
+
+INT8_ROWS = 500_000         # export_int8_rows of the int8 bundle: Sku only
+INT8_TOL = 0.05             # int8 Scores against float32 (tests/test_export.py)
+# tables with a vocab file in the serving phase (logical rows "v1"...
+# "v{n-1}"; the others hash their ids)
+VOCAB_ROWS = {"Cid2": 300, "Cid3": 6000}
+QUEUE_THREADS = 4
+QUEUE_CHECK = 4             # requests a thread submits in the checked run
+QUEUE_LOAD = 25             # requests a thread submits in a timed run
+TIMED_EVALS = 3
+
+
+def raw_request(cfg, req) -> dict:
+    """A ``make_requests`` request as the raw string ids a client sends:
+    ``v<index>`` for the tables of ``VOCAB_ROWS`` (vocab hits below their
+    vocab's size, out-of-vocabulary buckets above it), the decimal index
+    for hashed tables, the raw value for timestamps; u-side features keep
+    their lengths."""
+    from cikm2020_dmt_torch.data.pipeline import IDS, LEN
+    from cikm2020_dmt_torch.data.schema import FeatureSchema
+
+    table = {e.feature: e.table for e in cfg.embeddings}
+    out = {}
+    for f in FeatureSchema.from_config(cfg).id_features:
+        ids = req[f.name + IDS]
+        vals = (ids[0, :int(req[f.name + LEN][0])] if f.side == "u"
+                else ids[:, 0])
+        fmt = b"v%d" if table.get(f.name) in VOCAB_ROWS else b"%d"
+        out[f.name] = [fmt % v for v in vals]
+    return out
+
+
+class CountingScorer:
+    """A scorer that counts its forward passes: one per ``score_async``
+    or ``score_group_async`` call (three block-forward launches each)."""
+
+    def __init__(self, scorer):
+        self.scorer = scorer
+        self.n = 0
+
+    def score_async(self, batch):
+        self.n += 1
+        return self.scorer.score_async(batch)
+
+    def score_group_async(self, batches):
+        self.n += 1
+        return self.scorer.score_group_async(batches)
+
+
+def _under_load(queue, requests, per_thread: int) -> tuple[float, list]:
+    """``QUEUE_THREADS`` threads each submit ``per_thread`` requests
+    (cycling through ``requests``) and then wait for their Scores; returns
+    the wall seconds and [(request index, Scores)]."""
+    import threading
+
+    got, errors = [], []
+
+    def client(t):
+        try:
+            futs = [((t + i) % len(requests),
+                     queue.submit(requests[(t + i) % len(requests)]))
+                    for i in range(per_thread)]
+            got.extend((k, f.result(timeout=120)["Scores"].cpu().numpy())
+                       for k, f in futs)
+        except Exception as e:  # raised below, in the caller
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(QUEUE_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return wall, got
+
+
+def _latency(fn, n: int = 30, warmup: int = 5) -> tuple[float, float]:
+    """p50 and p90 ms of ``fn(i)`` on the host clock after ``warmup``
+    calls."""
+    lat = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        fn(i)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    lat = sorted(lat[warmup:])
+    return statistics.median(lat), lat[int(0.9 * len(lat)) - 1]
+
+
+def eval_serve_phase(cfg, dev, files: dict, d: str) -> dict:
+    """Evaluating, testing and serving the files phase's checkpoint as a
+    user runs them, at ``cfg``'s width, from the files phase's shards
+    (``files["data"]``) and its ``model.ckpt-4`` (under ``files["output"]``):
+
+    - ``cli.valid --once``: the result file's ``>> iter_steps:4`` block
+      with every streaming metric and the P@N / MRR@N lines, finite;
+    - ``cli.test --test_score_method rel --grid_search``: the gate lines
+      (each task's mean softmax sums to 1), a detail row for every example
+      written, finite AUCs, the grid search's best cell; ``cli.plot``'s
+      CSV of the summaries;
+    - ``run_eval`` over the files at the config's validation batch size
+      (4096), timed (host
+      clock, from the files to the scores on the host), with the gates;
+      one batch from the files on the card against the port's CPU path
+      within ``SCORES_TOL`` (scores, metric values, gate means);
+    - ``cli.export`` of a float32 bundle and of an int8 one
+      (``export_int8_rows`` ``INT8_ROWS``: Sku), each read back by
+      ``load_scorer`` (seconds of each);
+    - ``make_requests``' three requests as raw strings, assembled by
+      ``ServingPreprocessor`` through a vocab the phase writes: the float32
+      bundle's Scores within ``SCORES_TOL`` of a ``Scorer`` over the
+      restored checkpoint's params, the int8 bundle's within ``INT8_TOL``
+      of the float32 one's; request p50 / p90 through the preprocessor and
+      each bundle;
+    - ``ScorerQueue`` over the float32 bundle: 16 requests from 4 threads
+      each within ``SCORES_TOL`` of the request scored alone; requests/s
+      under the 4-thread load with groups of 1 only and with groups of
+      1, 2, 4, 8.
+
+    Every path is counted: exactly 3 block-forward launches per eval batch
+    (also with the gates) and per forward of a request or a queue's
+    group, and no other kernel.  Returns the numbers."""
+    from cikm2020_dmt_torch.cli import export as cli_export
+    from cikm2020_dmt_torch.cli import test as cli_test
+    from cikm2020_dmt_torch.cli import valid as cli_valid
+    from cikm2020_dmt_torch.cli.plot import load_runs, write_csv
+    from cikm2020_dmt_torch.core.checkpoint import CheckpointManager
+    from cikm2020_dmt_torch.core.config import DMTConfig
+    from cikm2020_dmt_torch.metrics.offline import AT_LIST
+    from cikm2020_dmt_torch.models.zoo import build_model
+    from cikm2020_dmt_torch.nn.layers import tree_map
+    from cikm2020_dmt_torch.serve.export import (Scorer, ServingPreprocessor,
+                                                 load_scorer, norm_constants)
+    from cikm2020_dmt_torch.serve.queue import ScorerQueue
+    from cikm2020_dmt_torch.train.evaluate import run_eval
+    from cikm2020_dmt_torch.train.loop import make_input_stream
+
+    def sync():
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+
+    def counted(what, forwards):
+        counts = read_counts()
+        want = {k: 3 * forwards if k == "fused_block_fwd" else 0
+                for k in counts}
+        if counts != want:
+            raise AssertionError(f"{what}: launches {counts}, want {want}")
+        return counts["fused_block_fwd"]
+
+    out = {"launches": {}}
+    data, n_examples = files["data"], FILE_SHARDS * TRAIN_BATCH
+    nrng = np.random.default_rng(SEED)
+    mean = nrng.normal(0.5, 1.0, cfg.feature_dimension)
+    std = nrng.uniform(0.1, 3.0, cfg.feature_dimension)
+    stats = {}
+    for name, vals in (("mean", mean), ("std", std)):
+        stats[name] = os.path.join(d, f"{name}.txt")
+        with open(stats[name], "w") as f:
+            f.write("\t".join(repr(float(v)) for v in vals) + "\n")
+    vocab = os.path.join(d, "vocab")
+    os.makedirs(vocab)
+    for table, rows in VOCAB_ROWS.items():
+        ids = ["unknow"] + [f"v{i}" for i in range(1, rows)]
+        with open(os.path.join(vocab, f"{table}.py"), "w") as f:
+            f.write(f"ID_TABLES = {{{table!r}: {ids!r}}}\n")
+    confs = {}
+    for kind, rows in (("f32", 0), ("int8", INT8_ROWS)):
+        confs[kind] = os.path.join(d, kind, "dmt.conf")
+        os.makedirs(os.path.dirname(confs[kind]))
+        write_conf(dataclasses.replace(
+            cfg, validate_step=FILE_SAVE_EVERY, export_int8_rows=rows),
+            confs[kind], data, files["output"], validation_data_path=data,
+            test_data_path=data, test_data_path_ord=data,
+            train_data_mean_path=stats["mean"],
+            train_data_std_path=stats["std"])
+    ecfg = DMTConfig.from_ini(confs["f32"])
+    if not CheckpointManager(ecfg.model_path).has_step(FILE_STEPS):
+        raise AssertionError(f"no model.ckpt-{FILE_STEPS} under "
+                             f"{ecfg.model_path}")
+    argv = ["--conf_file", confs["f32"], "--device", str(dev)]
+    batch_size = out["batch"] = ecfg.validation_batch_size
+    n_batches = -(-n_examples // batch_size)
+
+    # ---- cli.valid --once ----
+    reset_counts()
+    t0 = time.perf_counter()
+    vals = cli_valid.main(argv + ["--once"])
+    sync()
+    out["valid_s"] = time.perf_counter() - t0
+    out["launches"]["valid"] = counted("cli.valid", n_batches)
+    lines = open(ecfg.validation_result_path).read().splitlines()
+    got = dict(line.split(":", 1) for line in lines[1:])
+    want = {f"validation_{k}" for k in vals} | {
+        f"action_{a}_{m}_at_{n}" for a in (2, 5) for m in ("pre", "mrr")
+        for n in AT_LIST}
+    if lines[0] != f">> iter_steps:{FILE_STEPS}" or set(got) != want or \
+            not np.isfinite([float(v) for v in got.values()]).all():
+        raise AssertionError(f"validation result file: {lines[:3]} ..., "
+                             f"keys {sorted(set(got) ^ want)}")
+
+    # ---- cli.test --test_score_method rel --grid_search ----
+    reset_counts()
+    t0 = time.perf_counter()
+    res = cli_test.main(argv + ["--model_ckpt", f"model.ckpt-{FILE_STEPS}",
+                                "--test_score_method", "rel",
+                                "--grid_search"])
+    sync()
+    out["test_s"] = time.perf_counter() - t0
+    out["launches"]["test"] = counted("cli.test", n_batches)
+    result = os.path.join(ecfg.output_path,
+                          f"{ecfg.tag}.ckpt-{FILE_STEPS}.test_result__rel")
+    got = dict(line.split(":", 1) for line in open(result).read().splitlines()
+               if ":" in line and not line.startswith(">>"))
+    gates = np.array([[float(got[f"gate_{t}_expert_{e}"])
+                       for e in range(ecfg.num_experts)]
+                      for t in ("click", "order")])
+    aucs = [float(got[f"{g}_auc_{t}"]) for g in ("grouped", "overall")
+            for t in ("click", "order")]
+    with open(result + ".detail") as f:
+        detail_rows = sum(1 for _ in f)
+    r = res[data]
+    if not (np.abs(gates.sum(axis=1) - 1.0).max() < 1e-4
+            and detail_rows == n_examples and np.isfinite(aucs).all()
+            and r["grid"]["max_key"] in r["grid"]["cells"]):
+        raise AssertionError(f"test result: gates {gates}, {detail_rows} "
+                             f"detail rows of {n_examples}, AUCs {aucs}, "
+                             f"best cell {r['grid']['max_key']!r}")
+    runs = load_runs(ecfg.summary_path)
+    write_csv(runs, os.path.join(d, "summary.csv"))
+    if sorted(runs) != ["train", "validation"]:
+        raise AssertionError(f"summaries: {sorted(runs)}")
+    out.update(gates=gates.tolist(), aucs=aucs)
+
+    # ---- run_eval over the files, timed; one batch against the CPU ----
+    model = build_model(ecfg)
+    params = CheckpointManager(ecfg.model_path).restore(FILE_STEPS,
+                                                        "cpu")["params"]
+    card = tree_map(lambda t: t.to(dev), params)
+    run_eval(ecfg, model, card, data, batch_size, device=dev)  # warm-up
+    times = []
+    out["launches"]["eval"] = 0
+    for _ in range(TIMED_EVALS):
+        reset_counts()
+        t0 = time.perf_counter()
+        run_eval(ecfg, model, card, data, batch_size, collect_gates=True,
+                 device=dev)
+        times.append(time.perf_counter() - t0)
+        out["launches"]["eval"] += counted("run_eval", n_batches)
+    out["eval_s"] = times
+    out["eval_examples_per_s"] = n_examples / statistics.median(times)
+    stream = make_input_stream(ecfg, data, batch_size, shuffle=False,
+                               drop_remainder=False, pad_remainder=True)
+    batch = next(stream)
+    stream.close()
+    t0 = time.perf_counter()
+    reset_counts()
+    one = run_eval(ecfg, model, card, None, batch_size, data_iter=[batch],
+                   collect_gates=True, device=dev)
+    out["launches"]["eval"] += counted("one eval batch", 1)
+    ref = run_eval(ecfg, model, params, None, batch_size, data_iter=[batch],
+                   collect_gates=True, device="cpu")
+    s_err = max(float(np.abs(a - b).max()) for a, b in zip(one[2:], ref[2:]))
+    m_err = max(abs(one[0][k] - ref[0][k]) for k in ref[0])
+    if not (s_err <= SCORES_TOL and m_err <= SCORES_TOL
+            and one[1] == ref[1]):
+        raise AssertionError(f"eval from files, card vs CPU: scores and "
+                             f"gates {s_err}, metrics {m_err}")
+    out["eval_card_vs_cpu"] = max(s_err, m_err)
+    out["eval_card_vs_cpu_s"] = time.perf_counter() - t0
+    del params, ref
+
+    # ---- cli.export, float32 and int8; load_scorer ----
+    scorers = {}
+    out["export_s"], out["load_s"] = {}, {}
+    for kind, conf in confs.items():
+        t0 = time.perf_counter()
+        bundle = cli_export.main(["--conf_file", conf, "--model_ckpt",
+                                  f"model.ckpt-{FILE_STEPS}"])
+        out["export_s"][kind] = time.perf_counter() - t0
+        with open(os.path.join(bundle, "descriptor.json")) as f:
+            int8 = json.load(f)["int8_tables"]
+        if int8 != [] if kind == "f32" else "Sku" not in int8:
+            raise AssertionError(f"{kind} bundle: int8 tables {int8}")
+        t0 = time.perf_counter()
+        scorers[kind] = load_scorer(DMTConfig.from_ini(conf), bundle,
+                                    device=dev)
+        sync()
+        out["load_s"][kind] = time.perf_counter() - t0
+
+    # ---- requests through the preprocessor and each bundle ----
+    prep = ServingPreprocessor(dataclasses.replace(ecfg, vocab_path=vocab))
+    raws = [(raw_request(ecfg, q), q["raw_features"])
+            for q in make_requests(ecfg, CANDIDATES, REQUEST_LENS, SEED)]
+
+    def assemble(i):
+        ids, raw = raws[i % len(raws)]
+        return prep.assemble(CANDIDATES, ids, raw_features=raw,
+                             tile_uside=False)
+
+    requests = [assemble(i) for i in range(len(raws))]
+    reference = Scorer(ecfg, card, *norm_constants(mean, std), device=dev)
+    want = [reference(q) for q in requests]
+    del reference, card
+    scores, errs = {}, {}
+    for kind, scorer in scorers.items():
+        reset_counts()
+        scores[kind] = [scorer(q) for q in requests]
+        sync()
+        out["launches"][f"serve_{kind}"] = counted(f"{kind} bundle",
+                                                   len(requests))
+        for o in scores[kind]:
+            check_scores(o, CANDIDATES)
+        base = want if kind == "f32" else scores["f32"]
+        errs[kind] = max(float(np.abs(o[k] - b[k]).max())
+                         for o, b in zip(scores[kind], base) for k in b)
+    if not (errs["f32"] <= SCORES_TOL and errs["int8"] <= INT8_TOL):
+        raise AssertionError(f"bundle Scores: float32 vs the checkpoint's "
+                             f"Scorer {errs['f32']}, int8 vs float32 "
+                             f"{errs['int8']}")
+    out["scores_err"] = errs
+    for kind, scorer in scorers.items():
+        reset_counts()
+        out[f"p50_{kind}"], out[f"p90_{kind}"] = _latency(
+            lambda i: scorer(assemble(i)))
+        sync()
+        out["launches"][f"serve_{kind}"] += counted(f"{kind} latency", 30)
+
+    # ---- ScorerQueue over the float32 bundle ----
+    single = [o["Scores"] for o in scores["f32"]]
+    fwd = CountingScorer(scorers["f32"])
+    reset_counts()
+    q = ScorerQueue(fwd)
+    q.warmup(requests[0])
+    _, got = _under_load(q, requests, QUEUE_CHECK)
+    q_err = max(float(np.abs(s - single[k]).max()) for k, s in got)
+    if len(got) != QUEUE_THREADS * QUEUE_CHECK or q_err > SCORES_TOL:
+        raise AssertionError(f"queue: {len(got)} results, max |diff| "
+                             f"{q_err} from the requests scored alone")
+    rates = {}
+    for groups in ((1,), (1, 2, 4, 8)):
+        queue = q if len(groups) > 1 else ScorerQueue(fwd, 1, groups)
+        queue.warmup(requests[0])
+        n0 = fwd.n
+        wall, _ = _under_load(queue, requests, QUEUE_LOAD)
+        n_req = QUEUE_THREADS * QUEUE_LOAD
+        rates[groups[-1]] = {"requests_per_s": n_req / wall,
+                             "forwards": fwd.n - n0}
+        queue.close()
+    sync()
+    out["launches"]["queue"] = counted("the queue", fwd.n)
+    out.update(queue_err=q_err, queue=rates)
+    del scorers, scores, q
+    torch.cuda.empty_cache()
+    smi = (card_name_and_limit() if torch.device(dev).type == "cuda"
+           else "the CPU")
+    log(f"eval/serve phase on {smi}: cli.valid {out['valid_s']:.2f}s, "
+        f"cli.test {out['test_s']:.2f}s ({n_batches} batches of "
+        f"{batch_size} each, with a restore of the "
+        f"checkpoint); run_eval from files {out['eval_examples_per_s']:.1f} "
+        f"examples/s ({n_examples} examples in "
+        f"{', '.join(f'{t:.3f}' for t in times)}s, host clock, from the "
+        f"files to the scores on the host); card vs CPU one batch "
+        f"{out['eval_card_vs_cpu']:.3e} (tol {SCORES_TOL}); gates "
+        f"{np.round(gates, 4).tolist()}; AUCs {np.round(aucs, 4).tolist()}")
+    log(f"eval/serve phase on {smi}: export float32 "
+        f"{out['export_s']['f32']:.2f}s, int8 {out['export_s']['int8']:.2f}s;"
+        f" load_scorer {out['load_s']['f32']:.2f}s / "
+        f"{out['load_s']['int8']:.2f}s; Scores float32 bundle vs checkpoint "
+        f"{errs['f32']:.3e}, int8 vs float32 {errs['int8']:.3e}; request "
+        f"through the preprocessor at {CANDIDATES} candidates: float32 p50 "
+        f"{out['p50_f32']:.3f} ms p90 {out['p90_f32']:.3f} ms, int8 p50 "
+        f"{out['p50_int8']:.3f} ms p90 {out['p90_int8']:.3f} ms; queue "
+        f"({QUEUE_THREADS} threads x {QUEUE_LOAD} requests): groups of 1 "
+        f"{rates[1]['requests_per_s']:.1f} requests/s, groups up to 8 "
+        f"{rates[8]['requests_per_s']:.1f} requests/s in "
+        f"{rates[8]['forwards']} forwards; queue vs alone "
+        f"{q_err:.3e}; launches {json.dumps(out['launches'])}")
     return out
 
 
@@ -2030,8 +2445,17 @@ def eval_phase(cfg, params, dev) -> dict:
     the config's validation batch size, counted (12 attention-forward
     launches per batch, nothing else) and timed; one batch's metric values
     and scores against the same eval on the CPU (within 1e-4)."""
+    from cikm2020_dmt_torch.data.pipeline import Batch
     from cikm2020_dmt_torch.models.zoo import build_model
-    from cikm2020_dmt_torch.train.evaluate import run_eval
+    from cikm2020_dmt_torch.train import evaluate
+
+    def run_eval(cfg, model, params, batches, device):
+        """``run_eval`` over given batches of tensors (no header lines):
+        (metric values, p_clk, p_ord)."""
+        vals, _, clk, ord_ = evaluate.run_eval(
+            cfg, model, params, None, n,
+            data_iter=[Batch(b, [b""] * n) for b in batches], device=device)
+        return vals, clk, ord_
 
     n = cfg.validation_batch_size
     model = build_model(cfg)
@@ -2369,6 +2793,7 @@ def main() -> int:
     from cikm2020_dmt_torch.core.config import DMTConfig
     from cikm2020_dmt_torch.ops import _build
 
+    t_main = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -2450,15 +2875,26 @@ def main() -> int:
     del train, col, serve, data
     torch.cuda.empty_cache()
 
-    # ---- training from files: the C++ assembler, cli.train, checkpoints ----
-    t_f = time.perf_counter()
-    files = files_phase(cfg, dev, EXPECTED_PER_STEP["dmt"], data_eps[0],
-                        unpacked_ms, data_eps[1])
-    for rec in [fwd, bwd, seg] + rows:
-        rec["launches_by_path"]["files"] = (
-            files["counts"][rec["name"]]
-            + 2 * files["resume_counts"][rec["name"]])
-    log(f"files phase: wall {time.perf_counter() - t_f:.1f}s")
+    with tempfile.TemporaryDirectory() as fdir:
+        # ---- training from files: the C++ assembler, cli.train,
+        # checkpoints ----
+        t_f = time.perf_counter()
+        files = files_phase(cfg, dev, EXPECTED_PER_STEP["dmt"], data_eps[0],
+                            unpacked_ms, data_eps[1], fdir)
+        for rec in [fwd, bwd, seg] + rows:
+            rec["launches_by_path"]["files"] = (
+                files["counts"][rec["name"]]
+                + 2 * files["resume_counts"][rec["name"]])
+        log(f"files phase: wall {time.perf_counter() - t_f:.1f}s")
+
+        # ---- evaluating, testing and serving model.ckpt-4 ----
+        t_e = time.perf_counter()
+        evs = eval_serve_phase(cfg, dev, files, fdir)
+        n_evs = sum(evs["launches"].values())
+        fwd["launches"] += n_evs
+        fwd["launches_by_path"]["eval_serve"] = n_evs
+        fwd["eval_serve_launches"] = evs["launches"]
+        log(f"eval/serve phase: wall {time.perf_counter() - t_e:.1f}s")
     t_flag = time.perf_counter() - t_flag
 
     # ---- conf/dmt_2block.conf: 2+2 stacks, the attention kernels ----
@@ -2496,14 +2932,22 @@ def main() -> int:
         f"host cores, {len(os.sched_getaffinity(0))} available), packed device_batch {files['device_batch_ms']:.3f} "
         f"ms (unpacked {unpacked_ms:.3f}); save "
         f"{max(files['save_s'].values()):.2f}s, restore "
-        f"{files['restore_s']:.2f}s; wall {t_flag:.1f}s")
+        f"{files['restore_s']:.2f}s; eval from files "
+        f"{evs['eval_examples_per_s']:.1f} examples/s at batch "
+        f"{evs['batch']}; "
+        f"request through the preprocessor p50 float32 "
+        f"{evs['p50_f32']:.3f} ms, int8 {evs['p50_int8']:.3f} ms; queue "
+        f"{evs['queue'][1]['requests_per_s']:.1f} requests/s in groups of "
+        f"1, {evs['queue'][8]['requests_per_s']:.1f} in groups up to 8; "
+        f"wall {t_flag:.1f}s")
     log(f"dmt_2block: request p50 {serve2['p50']:.3f} ms, p90 "
         f"{serve2['p90']:.3f} ms; eval {ev['ms_per_batch']:.3f} ms per "
         f"batch of {ev['batch']}, {ev['examples_per_s']:.1f} examples/s; "
         f"training step {train2['step_ms']:.3f} ms, "
         f"{train2['examples_per_s']:.1f} examples/s at batch {TRAIN_BATCH}; "
         f"wall {t_two:.1f}s")
-    log(f"build wall {build_wall:.2f}s")
+    log(f"build wall {build_wall:.2f}s; script wall "
+        f"{time.perf_counter() - t_main:.1f}s")
     print(smi)
     print(json.dumps({"kernels": [fwd, bwd, seg] + rows
                       + [att_fwd, att_bwd]}))

@@ -27,6 +27,18 @@ _CKPT_RE = re.compile(r"model\.ckpt-(\d+)$")
 STATE_FILE = "state.pt"
 
 
+def save_file(obj: Any, final: str) -> None:
+    """``torch.save`` of ``obj`` to ``final`` under a temporary name,
+    flushed to disk and renamed into place: a reader sees the old file or
+    the whole new one."""
+    tmp = f"{final}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        torch.save(obj, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, final)
+
+
 def step_from_name(name: str) -> Optional[int]:
     m = _CKPT_RE.search(name)
     return int(m.group(1)) if m else None
@@ -57,13 +69,7 @@ class CheckpointManager:
         marker = self.marker_path(step)
         if os.path.exists(marker):
             os.remove(marker)
-        final = os.path.join(path, STATE_FILE)
-        tmp = f"{final}.{os.getpid()}.tmp"
-        with open(tmp, "wb") as f:
-            torch.save(state, f)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, final)
+        save_file(state, os.path.join(path, STATE_FILE))
         with open(marker, "w") as f:
             f.write(str(step))
         return path

@@ -284,6 +284,11 @@ class DMTConfig:
         return os.path.join(self.output_path or ".", self.tag + ".train.result")
 
     @property
+    def validation_result_path(self) -> str:
+        return os.path.join(self.output_path or ".",
+                            self.tag + ".validation.result")
+
+    @property
     def labels(self) -> tuple[int, ...]:
         return tuple(l for l, _ in self.train_weight)
 

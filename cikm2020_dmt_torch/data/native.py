@@ -9,7 +9,9 @@ failed build raises: nothing falls back to the Python path on its own.
 
 ``NativeAssembler`` produces the batches of the Python ``BatchAssembler``
 array for array (``tests/test_torch_native.py``); ``native_batch_stream``
-is the stream the trainer reads.
+is the stream the trainer and the evaluator read.  ``factorize_headers``
+and ``HeaderFactorizer`` parse eval header lines into labels and group
+codes for the offline metrics (``metrics/offline.py``).
 """
 
 from __future__ import annotations
@@ -277,6 +279,88 @@ class NativeAssembler:
         else:
             headers = [b""] * b
         return Batch(a, headers)
+
+
+def _header_fields(header_schema) -> tuple[int, int, int]:
+    """(label, sid, uuid) column indices; uuid falls back to sid."""
+    idx = {name: i for i, name in enumerate(header_schema)}
+    return idx["label"], idx["sid"], idx.get("uuid", idx["sid"])
+
+
+def factorize_headers(header_schema, headers) -> tuple:
+    """One C pass over eval header lines: (labels int64 [n], sid codes
+    int64 [n], uuid codes int64 [n]), the codes numbered in order of first
+    occurrence, with no Python string per row.  Raises ``ValueError`` on
+    lines it cannot parse (too few fields, an embedded newline) and
+    ``RuntimeError`` when the library does not build: nothing falls back
+    to a slower parse on its own."""
+    lib = load_library()
+    label_i, sid_i, uuid_i = _header_fields(header_schema)
+    n = len(headers)
+    blob = b"\n".join(headers)
+    labels = np.empty(n, np.int64)
+    sid_codes = np.empty(n, np.int32)
+    uuid_codes = np.empty(n, np.int32)
+    n_uniq = np.zeros(2, np.int64)
+    r = lib.dmt_factorize_headers(
+        blob, len(blob), n, label_i, sid_i, uuid_i,
+        _ptr(labels, ctypes.c_int64), _ptr(sid_codes, ctypes.c_int32),
+        _ptr(uuid_codes, ctypes.c_int32), _ptr(n_uniq, ctypes.c_int64))
+    if r != n:
+        raise ValueError(f"header factorize: {n} lines do not parse as "
+                         f"{len(header_schema)}-field headers")
+    return labels, sid_codes.astype(np.int64), uuid_codes.astype(np.int64)
+
+
+class HeaderFactorizer:
+    """``factorize_headers`` over a stream of chunks: codes stay numbered
+    across chunks, and only the distinct sid and uuid bytes stay resident
+    (in the library's hash arenas), so each chunk's lines can be dropped
+    once fed.  Raises as ``factorize_headers`` does."""
+
+    def __init__(self, header_schema):
+        self._fields = _header_fields(header_schema)
+        self._lib = load_library()
+        self._h = self._lib.dmt_hfact_create()
+        self._labels: list[np.ndarray] = []
+        self._sid: list[np.ndarray] = []
+        self._uuid: list[np.ndarray] = []
+        self.rows = 0
+
+    def feed(self, headers) -> None:
+        """Consumes one chunk of header byte lines."""
+        n = len(headers)
+        if n == 0:
+            return
+        blob = b"\n".join(headers)
+        labels = np.empty(n, np.int64)
+        sid_codes = np.empty(n, np.int32)
+        uuid_codes = np.empty(n, np.int32)
+        r = self._lib.dmt_hfact_feed(
+            self._h, blob, len(blob), n, *self._fields,
+            _ptr(labels, ctypes.c_int64), _ptr(sid_codes, ctypes.c_int32),
+            _ptr(uuid_codes, ctypes.c_int32))
+        if r != n:
+            raise ValueError(f"header factorize: a chunk of {n} lines does "
+                             "not parse")
+        self._labels.append(labels)
+        self._sid.append(sid_codes)
+        self._uuid.append(uuid_codes)
+        self.rows += n
+
+    def result(self) -> tuple:
+        """(labels int64 [n], sid codes int64 [n], uuid codes int64 [n])
+        over every chunk fed."""
+        if not self._labels:
+            return tuple(np.zeros(0, np.int64) for _ in range(3))
+        return (np.concatenate(self._labels),
+                np.concatenate(self._sid).astype(np.int64),
+                np.concatenate(self._uuid).astype(np.int64))
+
+    def __del__(self):
+        h, self._h = getattr(self, "_h", None), None
+        if h is not None:
+            self._lib.dmt_hfact_destroy(h)
 
 
 def scan_file(path: str) -> tuple[bytes, np.ndarray, np.ndarray]:

@@ -317,9 +317,10 @@ def prefetch(it: Iterable, size: int = 2) -> Iterator:
 
 
 def device_batch(batch: Batch, device) -> dict:
-    """The batch's arrays as tensors on ``device``, keyed and typed as
-    ``Trainer.train_step`` and ``run_eval`` take them (float32 and int32,
-    as ``chip_smoke.synthetic_batch`` makes them); the headers stay on the
+    """The batch's arrays (numpy arrays, or tensors on any device) as
+    tensors on ``device``, keyed and typed as ``Trainer.train_step`` and
+    ``run_eval`` take them (float32 and int32, as
+    ``chip_smoke.synthetic_batch`` makes them); the headers stay on the
     host.  The counterpart of the ``device_put`` in the JAX
     ``Trainer.device_prefetch``.  To a CUDA device each array goes from
     pinned host memory by a ``non_blocking`` copy on the current stream,
@@ -327,8 +328,9 @@ def device_batch(batch: Batch, device) -> dict:
     device = torch.device(device)
     out = {}
     for k, v in batch.arrays.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        if device.type == "cuda":
+        t = (v if isinstance(v, torch.Tensor)
+             else torch.from_numpy(np.ascontiguousarray(v)))
+        if device.type == "cuda" and t.device.type == "cpu":
             t = t.pin_memory().to(device, non_blocking=True)
         else:
             t = t.to(device)

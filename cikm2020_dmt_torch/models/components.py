@@ -214,11 +214,14 @@ def mmoe_init(gen: torch.Generator, in_dim: int, cfg: DMTConfig,
 
 def mmoe_apply(params: Params, x: torch.Tensor, cfg: DMTConfig, *,
                train: bool = False,
-               gen: Optional[torch.Generator] = None) -> list[torch.Tensor]:
+               gen: Optional[torch.Generator] = None,
+               return_gates: bool = False):
     """Per-task mixtures [B, hidden_bottom[-1]]: all experts in batched
     matmuls (layer 0 as one [in, E * H0] product, deeper layers batched
     over the expert axis), both gates in one product.  In training with
-    ``is_dropout``, expert layer i keeps with ``dropout_bottom[i]``."""
+    ``is_dropout``, expert layer i keeps with ``dropout_bottom[i]``.  With
+    ``return_gates`` also the per-task gate softmax [T, B, E], taken in
+    float32 of the same gate products (JAX ``MMoE.gate_values``)."""
     experts = params["experts"]
     E = len(experts)
 
@@ -246,8 +249,11 @@ def mmoe_apply(params: Params, x: torch.Tensor, cfg: DMTConfig, *,
     gz = (x @ wg.to(x.dtype) + bg.to(x.dtype)).reshape(x.shape[0],
                                                         len(gates), E)
     mix = torch.softmax(gz, dim=-1)                        # [B, T, E]
-    return [torch.einsum("bhe,be->bh", experts_out, mix[:, t])
+    outs = [torch.einsum("bhe,be->bh", experts_out, mix[:, t])
             for t in range(len(gates))]
+    if return_gates:
+        return outs, torch.softmax(gz.float(), dim=-1).transpose(0, 1)
+    return outs
 
 
 def tower_init(gen: torch.Generator, in_dim: int, cfg: DMTConfig,

@@ -72,8 +72,12 @@ class MMoE:
         return params
 
     def apply(self, params: Params, batch: dict, *, train: bool = False,
-              gen: Optional[torch.Generator] = None):
-        """Relevance logits ``([B, 1], [B, 1])`` in float32."""
+              gen: Optional[torch.Generator] = None,
+              return_gates: bool = False):
+        """Relevance logits ``([B, 1], [B, 1])`` in float32.  With
+        ``return_gates``, ``(logits, gates)``: the per-task expert-gate
+        softmax [T, B, E] in float32 from this same forward (JAX
+        ``MMoE.gate_values`` recomputes the trunk for it)."""
         cfg = self.cfg
         if self.use_interest:
             # interest first: the pooled combiner reuses its raw gathers
@@ -87,12 +91,16 @@ class MMoE:
         else:
             x = embedding_combiner(params["emb"], batch, cfg,
                                    engine=self.engine).to(self.compute_dtype)
-        outs = mmoe_apply(params["mmoe"], x, cfg, train=train, gen=gen)
+        outs = mmoe_apply(params["mmoe"], x, cfg, train=train, gen=gen,
+                          return_gates=return_gates)
+        if return_gates:
+            outs, gates = outs
         click = tower_apply(params["click"], outs[0], cfg, train=train,
                             gen=gen)
         order = tower_apply(params["order"], outs[1], cfg, train=train,
                             gen=gen)
-        return click.float(), order.float()
+        logits = click.float(), order.float()
+        return (logits, gates) if return_gates else logits
 
 
 class MMoETransformer(MMoE):
@@ -115,19 +123,26 @@ class MMoETransformerUnbias(MMoETransformer):
 
     def apply(self, params: Params, batch: dict, *, train: bool = False,
               gen: Optional[torch.Generator] = None,
-              is_predict: Optional[bool] = None):
+              is_predict: Optional[bool] = None,
+              return_gates: bool = False):
         """``is_predict`` (default: not ``train``, the Scorer's case): the
         relevance logits.  Otherwise ``((click_logit, order_logit),
         bias_logit)``, each [B, 1] float32, with dropout where ``train``
-        (the eval step asks for this with ``train=False``)."""
-        rel = super().apply(params, batch, train=train, gen=gen)
+        (the eval step asks for this with ``train=False``).  With
+        ``return_gates``, ``(that, gates)`` as ``MMoE.apply`` gives
+        them."""
+        rel = super().apply(params, batch, train=train, gen=gen,
+                            return_gates=return_gates)
+        if return_gates:
+            rel, gates = rel
         if is_predict is None:
             is_predict = not train
-        if is_predict:
-            return rel
-        bias = bias_net_apply(params["bias_net"], batch, self.cfg,
-                              train=train, gen=gen, engine=self.engine)
-        return rel, bias.float()
+        out = rel
+        if not is_predict:
+            bias = bias_net_apply(params["bias_net"], batch, self.cfg,
+                                  train=train, gen=gen, engine=self.engine)
+            out = rel, bias.float()
+        return (out, gates) if return_gates else out
 
 
 def build_model(cfg: DMTConfig,

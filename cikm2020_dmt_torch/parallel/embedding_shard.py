@@ -22,12 +22,23 @@ from typing import Optional
 
 import torch
 
-from ..nn.embedding import pooled_from_grid, take_clip
+from ..nn.embedding import pack_factor, pooled_from_grid, take_clip
+
+
+def take_quant(table: dict, ids: torch.Tensor) -> torch.Tensor:
+    """Rows of an int8 table, dequantized after the gather:
+    ``q[id] * scale[id // group]`` in float32, ids clamped into range."""
+    q, scale = table["q"], table["scale"]
+    group = pack_factor(q.shape[1]) if scale.shape[0] != q.shape[0] else 1
+    flat = ids.reshape(-1).clamp(0, q.shape[0] - 1)
+    rows = (q.index_select(0, flat).to(scale.dtype)
+            * scale.index_select(0, flat // group))
+    return rows.reshape(*ids.shape, q.shape[1])
 
 
 class EmbeddingEngine:
-    """Replicated-table engine: plain clamped gathers, or the lazy-Adam
-    overlay of the current training step."""
+    """Replicated-table engine: plain clamped gathers, int8 gathers, or
+    the lazy-Adam overlay of the current training step."""
 
     def __init__(self):
         self.overlay: dict = {}
@@ -38,6 +49,8 @@ class EmbeddingEngine:
         if ov is not None:
             from ..train.lazy import overlay_take
             return overlay_take(ov, feature, ids)
+        if isinstance(table, dict):
+            return take_quant(table, ids)
         if table.dtype == torch.bfloat16 and table.requires_grad:
             # float32 gradient accumulation, one rounding to the table type
             return take_clip(table.float(), ids).to(table.dtype)

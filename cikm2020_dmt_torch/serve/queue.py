@@ -1,0 +1,154 @@
+"""Micro-batching scorer queue: concurrent rerank requests share one
+forward (``cikm2020_dmt_tpu/serve/queue.py``).
+
+The reference serves one TF SavedModel session per request
+(reference saved_model/export_model.py:109-115, the Scores signature this
+queue keeps).  A served request is host-bound: its launches cost more host
+time than the card spends on them.  ``ScorerQueue`` drains whatever
+requests are waiting (up to ``max_group``) into one
+``Scorer.score_group_async`` pass, so under concurrent load the host work
+of a launch is shared by the group, while a lone request is dispatched at
+once: no request waits for a batching window.
+
+Before grouping, the dispatcher holds each request's keys, shapes and
+dtypes against the first request of the group and scores a request that
+differs alone.  The JAX queue instead retries a failed group one request
+at a time; that helps only for errors raised on the host, since a fault
+on the card stays with the whole CUDA context.  The retry is kept for
+host errors.
+
+Usage:
+    q = ScorerQueue(scorer)
+    fut = q.submit(batch_dict)        # batch from assemble(tile_uside=False)
+    scores = fut.result()             # {"Scores": [B] tensor, ...}
+    q.close()
+"""
+
+from __future__ import annotations
+
+import queue as queuelib
+import threading
+from concurrent.futures import Future
+
+import numpy as np
+
+
+def _signature(batch: dict) -> tuple:
+    """(key, shape, dtype) of every array of a request."""
+    return tuple(sorted((k, tuple(v.shape), str(v.dtype))
+                        for k, v in batch.items()))
+
+
+def _wait(v) -> None:
+    """Blocks until ``v`` (a tensor or an array) has its values."""
+    if hasattr(v, "cpu"):
+        v.cpu()
+    else:
+        np.asarray(v)
+
+
+class ScorerQueue:
+    """Adaptive micro-batching front end over ``serve.export.Scorer``.
+
+    Requests of one group share one candidate count and one layout (pad
+    thin candidate sets on the client; production rerank windows are of a
+    fixed size).  ``groups`` lists the group sizes that are run; a drained
+    group is padded to the next size by repeating its last request (the
+    padded rows are scored and dropped), so only those few shapes ever
+    reach the card.  Results are the scorer's device tensors, sliced per
+    request; the dispatcher never waits for the card."""
+
+    def __init__(self, scorer, max_group: int = 8,
+                 groups: tuple[int, ...] = (1, 2, 4, 8)):
+        if max_group not in groups:
+            raise ValueError(f"max_group {max_group} is not one of the "
+                             f"group sizes {groups}")
+        self.scorer = scorer
+        self.groups = tuple(sorted(groups))
+        self.max_group = max_group
+        self._q: queuelib.Queue = queuelib.Queue()
+        self._closed = False
+        self._lock = threading.Lock()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="dmt-scorer-queue")
+        self._thread.start()
+
+    def warmup(self, example_batch: dict) -> None:
+        """Runs every group size once, so the first burst pays no
+        first-call costs (allocations, library loads)."""
+        for g in self.groups:
+            _wait(self.scorer.score_group_async(
+                [example_batch] * g)["Scores"])
+
+    def submit(self, batch: dict) -> Future:
+        """Queues one request; resolves to {"Scores": [B], ...}."""
+        fut: Future = Future()
+        # the lock orders submit against close: a submit that passed the
+        # closed check must enqueue before the shutdown marker, or its
+        # future would never resolve
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("ScorerQueue is closed")
+            self._q.put((batch, fut))
+        return fut
+
+    def close(self) -> None:
+        """Scores what is queued, then stops the dispatcher; idempotent."""
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+            self._q.put(None)
+        self._thread.join()
+
+    # ------------------------------------------------------------------
+
+    def _next_group_size(self, n: int) -> int:
+        for g in self.groups:
+            if g >= n:
+                return g
+        return self.max_group
+
+    def _alone(self, batch: dict, fut: Future) -> None:
+        try:
+            fut.set_result(self.scorer.score_async(batch))
+        except Exception as e:  # noqa: BLE001 - the request's own error
+            fut.set_exception(e)
+
+    def _run(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            group = [item]
+            while len(group) < self.max_group:
+                try:
+                    nxt = self._q.get_nowait()
+                except queuelib.Empty:
+                    break
+                if nxt is None:
+                    self._q.put(None)  # re-queue the shutdown marker
+                    break
+                group.append(nxt)
+            sig = _signature(group[0][0])
+            odd = [(b, f) for b, f in group if _signature(b) != sig]
+            group = [(b, f) for b, f in group if _signature(b) == sig]
+            batches = [b for b, _ in group]
+            g = self._next_group_size(len(batches))
+            padded = batches + [batches[-1]] * (g - len(batches))
+            try:
+                out = self.scorer.score_group_async(padded)
+                # slices of the device tensors only: waiting for the card
+                # here would stop the launches from overlapping
+                per = out["Scores"].shape[0] // g
+                for i, (_, fut) in enumerate(group):
+                    fut.set_result({k: v[i * per:(i + 1) * per]
+                                    for k, v in out.items()})
+            except Exception:  # noqa: BLE001
+                # an error raised on the host fails no neighbour: each
+                # request of the group is scored alone
+                for b, fut in group:
+                    if not fut.done():
+                        self._alone(b, fut)
+            for b, fut in odd:
+                self._alone(b, fut)

@@ -764,3 +764,160 @@ def test_packed_transfer_and_prefetch_on_card(cuda_device):
     torch.cuda.synchronize()
     assert step_busy and copy_ms < busy_ms / 2, copy_ms
     check(tr, got)
+
+
+def _eval_serve_cfg(tmp_path):
+    """``conf/dmt.conf`` at its widths with tables of at most 5,000 rows
+    (Sku lane-packed in the reference's storage: 1,250 physical rows),
+    batches of 256, its data written as four shards of 100 examples under
+    ``tmp_path``, a random mean / std pair; the int8 threshold (1,000
+    physical rows) quantizes Sku alone."""
+    import dataclasses
+    from pathlib import Path
+
+    import numpy as np
+
+    import chip_smoke as cs
+    from cikm2020_dmt_torch.core.config import DMTConfig
+
+    cfg = DMTConfig.from_ini(str(Path(__file__).resolve().parent.parent
+                                 / "conf" / "dmt.conf"))
+    data = tmp_path / "data"
+    data.mkdir()
+    rng = np.random.default_rng(0)
+    stats = {}
+    for name, vals in (("mean", rng.normal(0.5, 1.0, 615)),
+                       ("std", rng.uniform(0.1, 3.0, 615))):
+        stats[name] = tmp_path / name
+        stats[name].write_text("\t".join(repr(float(v)) for v in vals))
+    cfg = dataclasses.replace(
+        cfg, embeddings=tuple(dataclasses.replace(e, id_size=min(
+            e.id_size, 5000)) for e in cfg.embeddings),
+        pack_rows_threshold=1000, export_int8_rows=1000,
+        validation_batch_size=256, test_batch_size=256,
+        output_path=str(tmp_path / "out"),
+        train_data_mean_path=str(stats["mean"]),
+        train_data_std_path=str(stats["std"]))
+    cs.write_shards(cfg, str(data), 4, 100, seed=9)
+    return cfg, str(data) + "/"
+
+
+@pytest.mark.cuda
+def test_run_eval_from_files_on_card(cuda_device, tmp_path):
+    """``run_eval`` over TFRecord shards with the gates, on the card and
+    on the CPU: scores, metric values and gate means within 1e-4, the
+    same header lines, 3 block-forward launches a batch and no other."""
+    import numpy as np
+
+    from cikm2020_dmt_torch.models.zoo import build_model
+    from cikm2020_dmt_torch.ops import attention, scatter_rows
+    from cikm2020_dmt_torch.train.evaluate import run_eval
+
+    cfg, data = _eval_serve_cfg(tmp_path)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    counted = (block.fused_encode_decode, block.fused_block_bwd,
+               attention.fused_attention, scatter_rows.update_rows)
+    for fn in counted:
+        fn.launches = 0
+    card = run_eval(cfg, model, params, data, 256, collect_gates=True,
+                    device=cuda_device)
+    assert [fn.launches for fn in counted] == [3 * 2, 0, 0, 0]
+    cpu = run_eval(cfg, model, params, data, 256, collect_gates=True,
+                   device="cpu")
+    assert card[1] == cpu[1] and len(card[1]) == 400
+    for a, b in zip(card[2:], cpu[2:]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
+    for k in cpu[0]:
+        assert abs(card[0][k] - cpu[0][k]) <= 1e-4, k
+
+
+@pytest.mark.cuda
+def test_int8_load_scorer_on_card(cuda_device, tmp_path):
+    """An int8 bundle (Sku quantized in groups of 4 logical rows) read
+    onto the card scores as on the CPU within 1e-4, and within 0.05 of the
+    float32 bundle; ``score_async`` leaves its tensors on the card."""
+    import dataclasses
+
+    import numpy as np
+
+    import chip_smoke as cs
+    from cikm2020_dmt_torch.core.checkpoint import CheckpointManager
+    from cikm2020_dmt_torch.models.zoo import build_model
+    from cikm2020_dmt_torch.serve.export import export_model, load_scorer
+
+    cfg, _ = _eval_serve_cfg(tmp_path)
+    params = build_model(cfg).init(torch.Generator().manual_seed(1))
+    CheckpointManager(cfg.model_path).save(3, {"params": params})
+    d8 = export_model(cfg, 3, str(tmp_path / "int8"))
+    d32 = export_model(dataclasses.replace(cfg, export_int8_rows=0), 3,
+                       str(tmp_path / "f32"))
+    card = load_scorer(cfg, d8, device=cuda_device)
+    sku = card.params["emb"]["Sku"]
+    assert sku["q"].dtype == torch.int8 and sku["q"].is_cuda
+    assert tuple(sku["q"].shape) == (5000, 32)
+    assert tuple(sku["scale"].shape) == (1250, 1)
+    cpu = load_scorer(cfg, d8, device="cpu")
+    f32 = load_scorer(cfg, d32, device=cuda_device)
+    for req in cs.make_requests(cfg, 300, cs.REQUEST_LENS, 0):
+        a = card.score_async(req)
+        assert all(v.is_cuda for v in a.values())
+        b = cpu(req)
+        for k in b:
+            np.testing.assert_allclose(a[k].cpu().numpy(), b[k], rtol=0,
+                                       atol=1e-4, err_msg=k)
+        np.testing.assert_allclose(b["Scores"], f32(req)["Scores"],
+                                   atol=0.05)
+
+
+@pytest.mark.cuda
+def test_queue_on_card(cuda_device):
+    """``ScorerQueue`` over a card ``Scorer``: 16 requests from 4 threads,
+    each within 1e-4 of the request scored alone, in forwards of groups of
+    at most 8, each forward 3 block-forward launches."""
+    import dataclasses
+    import threading
+    from pathlib import Path
+
+    import numpy as np
+
+    import chip_smoke as cs
+    from cikm2020_dmt_torch.core.config import DMTConfig
+    from cikm2020_dmt_torch.models.zoo import build_model
+    from cikm2020_dmt_torch.serve.export import Scorer
+    from cikm2020_dmt_torch.serve.queue import ScorerQueue
+
+    cfg = DMTConfig.from_ini(str(Path(__file__).resolve().parent.parent
+                                 / "conf" / "dmt.conf"))
+    cfg = dataclasses.replace(cfg, embeddings=tuple(
+        dataclasses.replace(e, id_size=min(e.id_size, 5000))
+        for e in cfg.embeddings))
+    params = build_model(cfg).init(torch.Generator().manual_seed(2))
+    scorer = cs.CountingScorer(Scorer(cfg, params, np.ones(615, np.float32),
+                                 np.zeros(615, np.float32),
+                                 device=cuda_device))
+    reqs = cs.make_requests(cfg, 300, cs.REQUEST_LENS, 3)
+    alone = [scorer.scorer(r)["Scores"] for r in reqs]
+    block.fused_encode_decode.launches = 0
+    q = ScorerQueue(scorer)
+    q.warmup(reqs[0])
+    got = []
+
+    def client(t):
+        futs = [((t + i) % 3, q.submit(reqs[(t + i) % 3]))
+                for i in range(4)]
+        got.extend((k, f.result(timeout=60)["Scores"]) for k, f in futs)
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    q.close()
+    assert len(got) == 16
+    for k, s in got:
+        assert s.is_cuda and s.shape == (300,)
+        np.testing.assert_allclose(s.cpu().numpy(), alone[k], rtol=0,
+                                   atol=1e-4)
+    torch.cuda.synchronize()
+    assert block.fused_encode_decode.launches == 3 * scorer.n

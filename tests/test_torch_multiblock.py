@@ -31,6 +31,7 @@ from cikm2020_dmt_tpu.train.evaluate import \
 from cikm2020_dmt_tpu.train.evaluate import run_eval as j_run_eval  # noqa: E402
 from cikm2020_dmt_torch.convert import params_from_jax  # noqa: E402
 from cikm2020_dmt_torch.core.config import TransformerConfig  # noqa: E402
+from cikm2020_dmt_torch.data.pipeline import Batch  # noqa: E402
 from cikm2020_dmt_torch.metrics.streaming import (  # noqa: E402
     task_metrics_init, task_metrics_values)
 from cikm2020_dmt_torch.models.zoo import build_model  # noqa: E402
@@ -123,7 +124,9 @@ def test_run_eval_matches_jax(models):
     jvals, _, jclk, jord = j_run_eval(
         jcfg, jm, params, state, None, B,
         data_iter=[g._as_batch(b) for b in batches])
-    vals, clk, ord_ = run_eval(pcfg, pm, pp, batches, device="cpu")
+    vals, _, clk, ord_ = run_eval(
+        pcfg, pm, pp, None, B,
+        data_iter=[Batch(b, [b""] * B) for b in batches], device="cpu")
     assert clk.shape == ord_.shape == (2 * B - 5,)
     np.testing.assert_allclose(clk, jclk, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(ord_, jord, rtol=1e-5, atol=1e-5)
@@ -143,7 +146,7 @@ def test_run_eval_default_device_needs_cuda(models):
         pytest.skip("a CUDA card is present")
     _, _, _, _, pcfg, pm, pp = models
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        run_eval(pcfg, pm, pp, [])
+        run_eval(pcfg, pm, pp, None, B, data_iter=[])
 
 
 @pytest.fixture(scope="module")
