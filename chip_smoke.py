@@ -100,6 +100,22 @@ latency through the preprocessor, and ``ScorerQueue`` under 4 threads;
 exactly 3 block-forward launches per eval batch and per forward of a
 request or a queue's group, and nothing else.
 
+The rest of the model lattice (``zoo_phase``, after ``dmt_2block``): eight
+paths at full width with 1 + 1 blocks of (80, 320, 4), the four demo
+configs as written (``conf/mlp_demo.conf``, ``embed_mlp_demo.conf``,
+``transformer_demo.conf``, ``mmoe_transformer_demo.conf``) and
+``multi_task``, ``mmoe``, ``multi_task_transformer`` and
+``embed_mlp_unbias`` on ``conf/dmt.conf``.  Each path: one step at batch
+256 against the CPU (``card_vs_cpu_step``, batch norm's moving statistics
+too), 5 timed steps at batch 2048 with exactly ``EXPECTED_PER_STEP[path]``
+launches a step, ``run_eval`` over 2 batches of 4096 and 25 requests of
+300 through ``Scorer``, one block forward per sequence group a batch or a
+request and nothing else.  Batch norm once (``mmoe_transformer_demo`` with
+``is_bn``: the card-vs-CPU step, and a float32 bundle scoring as a
+``Scorer`` over its checkpoint) and the dense optimizers sgd, adadelta,
+adagrad, rmsprop and ftrl once each (one step of ``embed_mlp_demo``
+against the CPU, no kernel launched).
+
 The segment sum (``segsum_phase``) is also launched twice on each of its
 inputs: the two results must be the same bits.
 
@@ -698,6 +714,17 @@ def card_vs_cpu_step(cfg, dev) -> dict:
             raise AssertionError(f"card vs CPU param {path}: median |diff| "
                                  f"{med:.3e} over the moved elements "
                                  "(tol 1e-6)")
+    # batch norm's moving statistics (0.001 of the batch's after one step
+    # from zero): norm-wise per leaf, as the float32 gradients
+    st_err = 0.0
+    for (path, a), (_, b) in zip(_leaves(s1["model_state"]),
+                                 _leaves(s2["model_state"])):
+        err = float((a.cpu().float() - b.float()).norm()
+                    / b.float().norm().clamp(min=1e-30))
+        st_err = max(st_err, err)
+        if not err <= BWD_TOL_F32:
+            raise AssertionError(f"card vs CPU model state {path}: "
+                                 f"norm-wise {err:.3e}")
     v_pairs = [(p, a, b) for (p, a), (_, b) in zip(_leaves(s1["opt"]["v"]),
                                                     _leaves(s2["opt"]["v"]))]
     v_pairs += [(f"lazy/{n}/v", s["mv"][1].cpu(), s2["lazy_opt"][n]["mv"][1])
@@ -714,14 +741,14 @@ def card_vs_cpu_step(cfg, dev) -> dict:
     out = {"loss_rel_err": loss_err, "grad_err": g_err,
            "grad_err_max": g_max, "param_err_over_tol": p_err,
            "param_median_err": p_med, "v_err": v_err,
-           "seconds": time.perf_counter() - t0}
+           "model_state_err": st_err, "seconds": time.perf_counter() - t0}
     log(f"card vs CPU step, batch {CHECK_BATCH}, dropout off: loss "
         f"{float(loss):.6f} vs {float(loss_cpu):.6f} (rel {loss_err:.2e}, "
         f"tol 1e-4); grads norm-wise {g_err:.2e} (tol 1e-2 f32, 2**-7 bf16 "
         f"tables), largest element {g_max:.2e} of its leaf's max; params "
         f"{p_err:.3f} of 2 lr (+ bf16 step), largest per-leaf median "
-        f"{p_med:.2e} (tol 1e-6); v norm-wise {v_err:.2e}; "
-        f"{out['seconds']:.1f}s")
+        f"{p_med:.2e} (tol 1e-6); v norm-wise {v_err:.2e}; moving "
+        f"statistics norm-wise {st_err:.2e}; {out['seconds']:.1f}s")
     if not loss_err <= 1e-4:
         raise AssertionError(f"card vs CPU loss: {loss_err}")
     return out
@@ -950,19 +977,23 @@ FILE_SAVE_EVERY = 2
 
 def write_conf(cfg, path: str, data_path: str, output_path: str,
                **paths) -> None:
-    """``conf/dmt.conf`` with ``cfg``'s widths, tables, batch sizes, save
-    cadence, transformer dropout and int8 export threshold, its training
-    data read from ``data_path``, its output (checkpoints, result files,
-    summaries) under ``output_path`` and any other ``[path]`` entry set by
-    ``paths``: a config file that the CLIs read as ``cfg``."""
+    """``conf/dmt.conf`` with ``cfg``'s model type, widths, tables, batch
+    norm, optimizer, batch sizes, save cadence, transformer dropout and
+    int8 export threshold, its training data read from ``data_path``, its
+    output (checkpoints, result files, summaries) under ``output_path`` and
+    any other ``[path]`` entry set by ``paths``: a config file that the
+    CLIs read as ``cfg``."""
     import configparser
 
     cp = configparser.ConfigParser()
     cp.read(CONF)
-    model = {"feature_dimension": cfg.feature_dimension,
+    model = {"model_type": cfg.model_type,
+             "feature_dimension": cfg.feature_dimension,
+             "hidden_units": cfg.hidden_units,
              "hidden_units_bottom": cfg.hidden_units_bottom,
              "hidden_units_task": cfg.hidden_units_task,
-             "num_experts": cfg.num_experts, "batch_size": cfg.batch_size,
+             "num_experts": cfg.num_experts, "is_bn": cfg.is_bn,
+             "optimizer": cfg.optimizer, "batch_size": cfg.batch_size,
              "validation_batch_size": cfg.validation_batch_size,
              "test_batch_size": cfg.test_batch_size,
              "validate_step": cfg.validate_step,
@@ -2785,6 +2816,339 @@ def _time_attention_bwd(att, sdpa, B, Tq, Tk, part, per_step, q, k, v, qm,
             "bound_by": b[1]}
 
 
+# ---------------------------------------------------------------------------
+# The rest of the model lattice (mlp ... mmoe_transformer): eight paths at
+# full width, 1 + 1 blocks of (80, 320, 4)
+# ---------------------------------------------------------------------------
+
+_CONF_DIR = os.path.dirname(CONF)
+# (path, conf file, model_type replacing the file's): the four demo
+# configurations as written, and four types that no conf file configures
+# on conf/dmt.conf (as the JAX package's tests build them)
+ZOO_PATHS = (
+    ("mlp_demo", "mlp_demo.conf", None),
+    ("embed_mlp_demo", "embed_mlp_demo.conf", None),
+    ("transformer_demo", "transformer_demo.conf", None),
+    ("mmoe_transformer_demo", "mmoe_transformer_demo.conf", None),
+    ("multi_task", "dmt.conf", "multi_task"),
+    ("mmoe", "dmt.conf", "mmoe"),
+    ("multi_task_transformer", "dmt.conf", "multi_task_transformer"),
+    ("embed_mlp_unbias", "dmt.conf", "embed_mlp_unbias"),
+)
+# launches per training step: the fused block forward and backward once
+# per sequence group, the lazy update's three where a table has at least
+# dedup_rows_threshold (1,000,000) rows (Sku in every configuration with
+# tables); mlp has no table and runs no kernel
+EXPECTED_PER_STEP.update({
+    "mlp_demo": {},
+    "embed_mlp_demo": {**LAZY_PER_STEP},
+    "transformer_demo": {"fused_block_fwd": 1, "fused_block_bwd": 1,
+                         **LAZY_PER_STEP},
+    "mmoe_transformer_demo": {"fused_block_fwd": 3, "fused_block_bwd": 3,
+                              **LAZY_PER_STEP},
+    "multi_task": {**LAZY_PER_STEP},
+    "mmoe": {**LAZY_PER_STEP},
+    "multi_task_transformer": {"fused_block_fwd": 3, "fused_block_bwd": 3,
+                               **LAZY_PER_STEP},
+    "embed_mlp_unbias": {**LAZY_PER_STEP},
+})
+ZOO_STEPS = 5               # timed training steps at TRAIN_BATCH
+ZOO_EVAL = (2, 4096)        # eval batches and their size
+ZOO_REQUESTS = (5, 25)      # serving warm-ups and timed requests
+ZOO_OPTIMIZERS = ("sgd", "adadelta", "adagrad", "rmsprop", "ftrl")
+
+
+def zoo_config(conf: str, model_type=None):
+    from cikm2020_dmt_torch.core.config import DMTConfig
+    cfg = DMTConfig.from_ini(os.path.join(_CONF_DIR, conf))
+    return cfg if model_type is None else dataclasses.replace(
+        cfg, model_type=model_type)
+
+
+def _norm_constants(cfg):
+    from cikm2020_dmt_torch.serve.export import norm_constants
+    nrng = np.random.default_rng(SEED)
+    mean = nrng.normal(0.5, 1.0, cfg.feature_dimension)
+    std = nrng.uniform(0.1, 3.0, cfg.feature_dimension)
+    return mean, std, norm_constants(mean, std)
+
+
+def _expect(counts: dict, per: dict, n: int, what: str) -> None:
+    want = {k: per.get(k, 0) * n for k in counts}
+    if counts != want:
+        raise AssertionError(f"{what} launched {counts}, expected {want}")
+
+
+def zoo_path(name: str, cfg, dev) -> dict:
+    """One lattice path at full width: (a) one step at batch 256 against
+    the CPU (``card_vs_cpu_step``), (b) ``ZOO_STEPS`` timed training steps
+    at batch 2048 after two warm-ups, exactly ``EXPECTED_PER_STEP[name]``
+    launches a step, (c) ``run_eval`` over ``ZOO_EVAL`` batches, one block
+    forward per sequence group and batch, (d) ``Scorer`` latency over
+    ``ZOO_REQUESTS`` requests of 300, one block forward per group and
+    request.  Returns the path's numbers and its counts."""
+    from cikm2020_dmt_torch.data.pipeline import Batch
+    from cikm2020_dmt_torch.metrics.streaming import task_metrics_init
+    from cikm2020_dmt_torch.serve.export import Scorer
+    from cikm2020_dmt_torch.train import evaluate
+    from cikm2020_dmt_torch.train.loop import Trainer
+
+    t_path = time.perf_counter()
+    expected = EXPECTED_PER_STEP[name]
+    groups = expected.get("fused_block_fwd", 0)
+    check = card_vs_cpu_step(cfg, dev)
+    torch.cuda.empty_cache()
+
+    # ---- (b) training, counted ----
+    tr = Trainer(cfg, device=dev)
+    state = tr.init_state(torch.Generator(device=dev).manual_seed(SEED))
+    batches = [synthetic_batch(cfg, TRAIN_BATCH, SEED + 300 + i, dev)
+               for i in range(2)]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    metrics = task_metrics_init(dev)
+    for i in range(2):
+        state, metrics, _ = tr.train_step(state, metrics, batches[i], gen)
+    torch.cuda.synchronize()
+    state, metrics, losses, train_counts, step_ms, wall_ms = timed_steps(
+        tr, state, metrics, batches, gen, ZOO_STEPS)
+    _expect(train_counts, expected, ZOO_STEPS, f"{name} training")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: non-finite training loss {losses}")
+    del batches
+
+    # ---- (c) eval, counted ----
+    n_eval, eval_bs = ZOO_EVAL
+    ebatches = [synthetic_batch(cfg, eval_bs, SEED + 400 + i, dev)
+                for i in range(n_eval)]
+    data = [Batch(b, [b""] * eval_bs) for b in ebatches]
+
+    def run_eval(batches):
+        return evaluate.run_eval(cfg, tr.model, state["params"], None,
+                                 eval_bs, data_iter=batches, device=dev,
+                                 model_state=state["model_state"])
+
+    run_eval(data[:1])                      # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    vals, _, clk, ord_ = run_eval(data)
+    eval_s = time.perf_counter() - t0
+    eval_counts = read_counts()
+    _expect(eval_counts, {"fused_block_fwd": groups}, n_eval,
+            f"{name} eval")
+    if clk.shape != (n_eval * eval_bs,) or not (
+            np.isfinite(clk).all() and np.isfinite(ord_).all()
+            and all(np.isfinite(v) for v in vals.values())):
+        raise AssertionError(f"{name} eval: scores or metrics not finite")
+    del ebatches, data
+
+    # ---- (d) serving, counted ----
+    _, _, (scale, const_vec) = _norm_constants(cfg)
+    scorer = Scorer(cfg, state["params"], scale, const_vec,
+                    model_state=state["model_state"])
+    requests = make_requests(cfg, CANDIDATES, REQUEST_LENS, SEED)
+    warm, timed = ZOO_REQUESTS
+    for i in range(warm):
+        check_scores(scorer(requests[i % len(requests)]), CANDIDATES)
+    torch.cuda.synchronize()
+    reset_counts()
+    lat = []
+    for i in range(timed):
+        t0 = time.perf_counter()
+        out = scorer(requests[i % len(requests)])
+        lat.append((time.perf_counter() - t0) * 1e3)
+    serve_counts = read_counts()
+    _expect(serve_counts, {"fused_block_fwd": groups}, timed,
+            f"{name} serving")
+    check_scores(out, CANDIDATES)
+    p50 = statistics.median(lat)
+    p90 = sorted(lat)[int(0.9 * len(lat)) - 1]
+    rec = {"model_type": cfg.model_type, "step_ms": step_ms,
+           "step_wall_ms": wall_ms,
+           "examples_per_s": TRAIN_BATCH / (step_ms / 1e3),
+           "losses": [losses[0], losses[-1]],
+           "eval_ms_per_batch": eval_s * 1e3 / n_eval,
+           "eval_examples_per_s": n_eval * eval_bs / eval_s,
+           "p50_ms": p50, "p90_ms": p90,
+           "card_vs_cpu": {k: v for k, v in check.items()
+                           if k != "seconds"},
+           "counts": {k: train_counts[k] + eval_counts[k] + serve_counts[k]
+                      for k in train_counts},
+           "seconds": time.perf_counter() - t_path}
+    log(f"zoo {name} ({cfg.model_type}): step {step_ms:.3f} ms (CUDA "
+        f"events; host clock {wall_ms:.3f} ms), "
+        f"{rec['examples_per_s']:.1f} examples/s at batch {TRAIN_BATCH}, "
+        f"losses {losses[0]:.4f}..{losses[-1]:.4f}; eval "
+        f"{rec['eval_ms_per_batch']:.3f} ms per batch of {eval_bs}, "
+        f"{rec['eval_examples_per_s']:.1f} examples/s; request p50 "
+        f"{p50:.3f} ms, p90 {p90:.3f} ms over {timed} of {CANDIDATES}; "
+        f"launches train {json.dumps(train_counts)}, eval "
+        f"{eval_counts['fused_block_fwd']}, serve "
+        f"{serve_counts['fused_block_fwd']} block forwards; "
+        f"{rec['seconds']:.1f}s")
+    del tr, state, scorer
+    torch.cuda.empty_cache()
+    return rec
+
+
+def zoo_bn_check(dev, d: str) -> dict:
+    """``mmoe_transformer_demo`` with batch norm (the per-expert MMoE):
+    one step against the CPU, moving statistics included; then one step
+    on the card saved as a checkpoint, exported as a float32 bundle,
+    loaded, and scored against a ``Scorer`` over the checkpoint's params
+    and model state (the same card, so within ``SCORES_TOL``)."""
+    from cikm2020_dmt_torch.metrics.streaming import task_metrics_init
+    from cikm2020_dmt_torch.serve.export import (Scorer, export_model,
+                                                 load_scorer)
+    from cikm2020_dmt_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    mean, std, (scale, const_vec) = _norm_constants(
+        zoo_config("mmoe_transformer_demo.conf"))
+    for stat, v in (("mean", mean), ("std", std)):
+        with open(os.path.join(d, stat), "w") as f:
+            f.write("\t".join(repr(float(x)) for x in v) + "\n")
+    cfg = dataclasses.replace(
+        zoo_config("mmoe_transformer_demo.conf"), is_bn=True,
+        output_path=os.path.join(d, "out"),
+        train_data_mean_path=os.path.join(d, "mean"),
+        train_data_std_path=os.path.join(d, "std"))
+    check = card_vs_cpu_step(cfg, dev)
+    torch.cuda.empty_cache()
+    tr = Trainer(cfg, device=dev)
+    state = tr.init_state(torch.Generator(device=dev).manual_seed(SEED))
+    state, _, _ = tr.train_step(
+        state, task_metrics_init(dev),
+        synthetic_batch(cfg, TRAIN_BATCH, SEED + 500, dev),
+        torch.Generator(device=dev).manual_seed(SEED))
+    tr.ckpt.save(1, state)
+    bundle = load_scorer(cfg, export_model(cfg, 1, os.path.join(d, "bundle")),
+                         device=dev)
+    direct = Scorer(cfg, state["params"], scale, const_vec,
+                    model_state=state["model_state"])
+    err = 0.0
+    for req in make_requests(cfg, CANDIDATES, REQUEST_LENS, SEED):
+        a, b = bundle(req), direct(req)
+        # after one step the moving variance is 0.001 of the batch's, so
+        # the normalized logits are large and a probability may round to
+        # 0 or 1 (the reference's arithmetic): finite and in [0, 1]
+        for k, v in a.items():
+            if v.shape != (CANDIDATES,) or not (
+                    np.isfinite(v).all() and (v >= 0).all()
+                    and (v <= 1).all()):
+                raise AssertionError(f"zoo batch-norm bundle {k}: {v}")
+        err = max(err, max(float(np.abs(a[k] - b[k]).max()) for k in b))
+    n_state = len(list(_leaves(bundle.model_state)))
+    log(f"zoo batch norm (mmoe_transformer_demo, is_bn): card vs CPU "
+        f"moving statistics norm-wise {check['model_state_err']:.2e}; "
+        f"float32 bundle ({n_state} moving statistics) vs the "
+        f"checkpoint's Scorer: max |diff| {err:.3e} (tol {SCORES_TOL}); "
+        f"{time.perf_counter() - t0:.1f}s")
+    if not (n_state and err <= SCORES_TOL):
+        raise AssertionError(f"zoo batch-norm bundle: {n_state} moving "
+                             f"statistics, Scores differ by {err}")
+    del tr, state, bundle, direct
+    torch.cuda.empty_cache()
+    return {"card_vs_cpu": {k: v for k, v in check.items()
+                            if k != "seconds"},
+            "bundle_scores_err": err, "moving_statistics": n_state}
+
+
+def zoo_optimizer_check(opt: str, dev) -> dict:
+    """One step of ``embed_mlp_demo`` under ``opt`` (no lazy plan: the
+    1,000,000 x 32 Sku table takes the dense update) on the card and on
+    a CPU copy of the same state, batch 256: no kernel launched; loss
+    within 1e-4; each param leaf within 1e-2 of the CPU step's largest
+    move of that leaf, plus one bfloat16 step of its largest |value| for
+    bfloat16 leaves (a bfloat16 table's gradient is summed in bfloat16, in
+    another order on the card), plus, under rmsprop, twice the most one
+    step moves an element whose gradient is rounding noise (lr /
+    sqrt(1 - decay): rmsprop divides by the root of 0.1 g^2, as Adam's
+    "2 lr" rule in ``card_vs_cpu_step``); and, since that bound is loose,
+    the median |card - CPU| over the elements the CPU step moved below
+    1e-6 in every float32 leaf."""
+    from cikm2020_dmt_torch.metrics.streaming import task_metrics_init
+    from cikm2020_dmt_torch.nn.layers import tree_map
+    from cikm2020_dmt_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(zoo_config("embed_mlp_demo.conf"),
+                              optimizer=opt)
+    card, cpu = Trainer(cfg, device=dev), Trainer(cfg, device="cpu")
+    if card.lazy_plan:
+        raise AssertionError(f"{opt}: a lazy plan under a dense optimizer")
+    state = card.init_state(torch.Generator(device=dev).manual_seed(SEED))
+    state_cpu = tree_map(lambda t: t.cpu().clone(), state)
+    before = dict(_leaves(state_cpu["params"]))
+    batch = synthetic_batch(cfg, CHECK_BATCH, SEED + 10, dev)
+    reset_counts()
+    s1, _, loss = card.train_step(state, task_metrics_init(dev), batch,
+                                  torch.Generator(device=dev))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    _expect(counts, {}, 1, f"{opt} step")
+    s2, _, loss_cpu = cpu.train_step(
+        state_cpu, task_metrics_init(),
+        {k: v.cpu() for k, v in batch.items()}, torch.Generator())
+    loss_err = abs(float(loss) - float(loss_cpu)) / abs(float(loss_cpu))
+    noise_step = (cfg.learning_rate[0] / np.sqrt(1 - 0.9)
+                  if opt == "rmsprop" else 0.0)
+    worst = med_worst = 0.0
+    for (path, a), (_, b) in zip(_leaves(s1["params"]),
+                                 _leaves(s2["params"])):
+        bf16 = b.dtype == torch.bfloat16
+        a, b, b0 = a.cpu().float(), b.float(), before[path].float()
+        moved = b != b0
+        tol = (1e-2 * float((b - b0).abs().max()) + 2 * noise_step
+               + (2.0 ** -7 * float(b.abs().max()) if bf16 else 0.0))
+        d = (a - b).abs()
+        err = float(d.max())
+        worst = max(worst, err / tol if tol > 0 else (0.0 if err == 0
+                                                       else np.inf))
+        if not err <= tol:
+            raise AssertionError(f"{opt} card vs CPU param {path}: "
+                                 f"{err:.3e} (tol {tol:.3e})")
+        if not bf16 and int(moved.sum()):
+            med = float(d[moved].median())
+            med_worst = max(med_worst, med)
+            if not med <= 1e-6:
+                raise AssertionError(f"{opt} card vs CPU param {path}: "
+                                     f"median |diff| {med:.3e} over the "
+                                     "moved elements (tol 1e-6)")
+    log(f"zoo optimizer {opt} (embed_mlp_demo, dense tables): loss "
+        f"{float(loss):.6f} vs {float(loss_cpu):.6f} (rel {loss_err:.2e}, "
+        f"tol 1e-4); params {worst:.3f} of their tolerance, largest "
+        f"median {med_worst:.2e} (tol 1e-6); launches "
+        f"{json.dumps(counts)}; {time.perf_counter() - t0:.1f}s")
+    if not loss_err <= 1e-4:
+        raise AssertionError(f"{opt} card vs CPU loss: {loss_err}")
+    del card, cpu, state, state_cpu, s1, s2
+    torch.cuda.empty_cache()
+    return {"loss_rel_err": loss_err, "param_err_over_tol": worst,
+            "param_median_err": med_worst}
+
+
+def zoo_phase(dev) -> dict:
+    """The eight lattice paths (``zoo_path``), batch norm once
+    (``zoo_bn_check``) and the five dense optimizers once each
+    (``zoo_optimizer_check``).  Returns the numbers and the launch counts
+    of the paths' counted runs, summed."""
+    t0 = time.perf_counter()
+    paths = {name: zoo_path(name, zoo_config(conf, mt), dev)
+             for name, conf, mt in ZOO_PATHS}
+    with tempfile.TemporaryDirectory() as d:
+        bn = zoo_bn_check(dev, d)
+    opts = {opt: zoo_optimizer_check(opt, dev) for opt in ZOO_OPTIMIZERS}
+    counts = {k: sum(p["counts"][k] for p in paths.values())
+              for k in next(iter(paths.values()))["counts"]}
+    wall = time.perf_counter() - t0
+    log(f"zoo phase: {len(paths)} paths, batch norm, "
+        f"{len(opts)} optimizers; launches {json.dumps(counts)}; wall "
+        f"{wall:.1f}s")
+    return {"paths": paths, "batch_norm": bn, "optimizers": opts,
+            "counts": counts, "wall_s": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -2920,6 +3284,13 @@ def main() -> int:
         "train": train2["counts"]["attention_fwd"]}
     t_two = time.perf_counter() - t_two
 
+    # ---- the rest of the model lattice ----
+    zoo = zoo_phase(dev)
+    for rec in [fwd, bwd, seg] + rows:
+        n = zoo["counts"][rec["name"]]
+        rec["launches"] += n
+        rec.setdefault("launches_by_path", {})["zoo"] = n
+
     smi = card_name_and_limit()
     log(f"dmt: request p50 {p50:.3f} ms; training step "
         f"{step_ms:.3f} ms, {eps:.1f} examples/s at batch {TRAIN_BATCH}; "
@@ -2946,6 +3317,11 @@ def main() -> int:
         f"training step {train2['step_ms']:.3f} ms, "
         f"{train2['examples_per_s']:.1f} examples/s at batch {TRAIN_BATCH}; "
         f"wall {t_two:.1f}s")
+    log("zoo: " + "; ".join(
+        f"{name} step {p['step_ms']:.3f} ms, eval "
+        f"{p['eval_examples_per_s']:.1f} examples/s, request p50 "
+        f"{p['p50_ms']:.3f} ms" for name, p in zoo["paths"].items())
+        + f"; wall {zoo['wall_s']:.1f}s")
     log(f"build wall {build_wall:.2f}s; script wall "
         f"{time.perf_counter() - t_main:.1f}s")
     print(smi)

@@ -13,9 +13,13 @@ of a JAX ``model.init`` or checkpoint); bfloat16 arrays may come as
 is carried, the bias net's included.
 
 ``train_state_from_jax`` carries a JAX ``Trainer`` state across: the
-params, optax Adam's ``mu``/``nu``/``count`` (tables unpacked like the
-params), and the lazy-Adam moments, which JAX stores flat as [2 R_phys, w]
-(m in rows [0, R_phys)) and the port as [2, R, D].
+params, the model state (``model_state_from_jax``), the dense optimizer's
+state in the keys of ``train/optim.py`` (optax Adam's ``mu``/``nu``/
+``count`` as ``m``/``v``/``count``; the adagrad, rmsprop and adadelta
+states under their optax field names; the schedule's ``count``; the JAX
+FTRL's ``n``/``z``/``step``; trees of tables unpacked like the params),
+and the lazy-Adam moments, which JAX stores flat as [2 R_phys, w] (m in
+rows [0, R_phys)) and the port as [2, R, D].
 """
 
 from __future__ import annotations
@@ -85,6 +89,39 @@ def params_from_jax(cfg: DMTConfig, params, device="cpu") -> dict:
     return out
 
 
+def model_state_from_jax(state, device="cpu") -> dict:
+    """A JAX model state (batch norm's moving statistics, numpy leaves)
+    -> the port's; the trees are the same."""
+    return tree_to_tensors(state, device)
+
+
+def _scalar(x, device) -> torch.Tensor:
+    return torch.tensor(int(np.asarray(x)), dtype=torch.int64,
+                        device=device)
+
+
+def opt_state_from_jax(cfg: DMTConfig, opt_state, device="cpu") -> dict:
+    """A JAX dense optimizer state (an optax chain's tuple of states, or
+    the FTRL dict) -> the port's dict.  Param-shaped trees are converted
+    like the params, counts become int64 scalars."""
+    if isinstance(opt_state, dict):           # the JAX package's FTRL
+        return {"n": params_from_jax(cfg, opt_state["n"], device),
+                "z": params_from_jax(cfg, opt_state["z"], device),
+                "step": _scalar(opt_state["step"], device)}
+    names = {"mu": "m", "nu": "v"} if cfg.optimizer.lower() == "adam" \
+        else {}
+    out: dict = {}
+    for part in opt_state:
+        for field, value in getattr(part, "_asdict", dict)().items():
+            key = names.get(field, field)
+            if key in out:
+                continue      # the schedule's count equals Adam's own
+            out[key] = (params_from_jax(cfg, value, device)
+                        if isinstance(value, dict)
+                        else _scalar(value, device))
+    return out
+
+
 def _lazy_moments(name: str, mv, rows: int, dim: int, device):
     """JAX lazy-Adam moments -> [2, rows, dim] float32: flat [2 R_phys, w]
     (m in the first half of the rows) or already stacked [2, R_phys, w]."""
@@ -98,21 +135,15 @@ def train_state_from_jax(cfg: DMTConfig, state, device="cpu") -> dict:
     """A JAX ``Trainer`` state (numpy leaves, the tree of
     ``Trainer.init_state``) -> the port's ``Trainer`` state on
     ``device``."""
-    adam = state["opt_state"][0]   # optax ScaleByAdamState(count, mu, nu)
     shape_of = _shapes(cfg.embeddings)
-
-    def scalar(x):
-        return torch.tensor(int(np.asarray(x)), dtype=torch.int64,
-                            device=device)
-
     return {
         "params": params_from_jax(cfg, state["params"], device),
-        "opt": {"m": params_from_jax(cfg, adam.mu, device),
-                "v": params_from_jax(cfg, adam.nu, device),
-                "count": scalar(adam.count)},
+        "model_state": model_state_from_jax(state.get("model_state", {}),
+                                            device),
+        "opt": opt_state_from_jax(cfg, state["opt_state"], device),
         "lazy_opt": {name: {"mv": _lazy_moments(name, sub["mv"],
                                                 *shape_of[name], device)}
                      for name, sub in state.get("lazy_opt", {}).items()},
-        "step": scalar(state["step"]),
-        "lazy_overflow": scalar(state.get("lazy_overflow", 0)),
+        "step": _scalar(state["step"], device),
+        "lazy_overflow": _scalar(state.get("lazy_overflow", 0), device),
     }

@@ -9,8 +9,9 @@ Reference protocol (run_dnn.py:258-261,379-388,409-429,447-449):
 - the resume step parsed from the checkpoint's name.
 
 Here ``model.ckpt-{step}`` is a directory holding one ``torch.save`` file
-of the whole train state (``params``, ``opt``, ``lazy_opt``, ``step``,
-``lazy_overflow``).  The file is written under a temporary name, flushed
+of the whole train state (``params``, ``model_state``, ``opt``,
+``lazy_opt``, ``step``, ``lazy_overflow``; a state saved before the model
+state existed restores without it, and eval reads it as ``{}``).  The file is written under a temporary name, flushed
 to disk and renamed into place, and the marker is written last, so a
 poller never sees a half-written checkpoint.
 """

@@ -1,7 +1,9 @@
 """Shared model components: feature combiner, behavior-sequence interest,
-stacked MMoE, task towers and the bias net
-(``cikm2020_dmt_tpu/models/components.py``).  ``train`` turns dropout on;
-its randomness comes from the caller's ``torch.Generator``."""
+MMoE, task towers and the bias net
+(``cikm2020_dmt_tpu/models/components.py``).  ``train`` turns dropout on
+and batch norm's batch statistics; dropout's randomness comes from the
+caller's ``torch.Generator``.  Components with batch norm take and return
+their part of the model's state tree (``nn/layers.bn_state``)."""
 
 from __future__ import annotations
 
@@ -13,8 +15,9 @@ from ..core.config import DMTConfig
 from ..data.pipeline import IDS, LEN, WTS
 from ..nn.embedding import (collection_init, pooled_from_grid, presence_mask,
                             ts_bucketize)
-from ..nn.layers import (Params, dense_apply, dense_init, dropout_keep,
-                         dropout_rate, glorot_uniform, mlp_apply, mlp_init)
+from ..nn.layers import (Params, State, dense_apply, dense_init,
+                         dropout_keep, dropout_rate, glorot_uniform,
+                         mlp_apply, mlp_init)
 from ..nn.transformer import encode_decode, transformer_init
 from ..parallel.embedding_shard import DENSE_ENGINE, EmbeddingEngine
 
@@ -34,9 +37,16 @@ def feature_wts(batch: dict, feature: str, ids) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def combiner_dim(cfg: DMTConfig) -> int:
+def _attention_user_features(cfg: DMTConfig) -> frozenset:
+    return frozenset(user for group in cfg.attention_pairs
+                     for user, _ in group)
+
+
+def combiner_dim(cfg: DMTConfig, skip_seq: bool = False) -> int:
     dim = cfg.feature_dimension if cfg.is_use_feature else 0
-    dim += sum(spec.dim for spec in cfg.embeddings)
+    skip = _attention_user_features(cfg) if skip_seq else frozenset()
+    dim += sum(spec.dim for spec in cfg.embeddings
+               if spec.feature not in skip)
     for a, _ in cfg.sim_embed:
         spec = next(s for s in cfg.embeddings if s.feature == a)
         dim += 2 + 2 * spec.dim  # inner + cosine + |diff| + diff^2
@@ -44,21 +54,27 @@ def combiner_dim(cfg: DMTConfig) -> int:
 
 
 def embedding_combiner(emb: Params, batch: dict, cfg: DMTConfig, *,
+                       skip_seq: bool = False,
                        engine: EmbeddingEngine = DENSE_ENGINE,
                        seq_cache: Optional[dict] = None) -> torch.Tensor:
     """[dense features | mean-pooled embedding per spec | sim crosses].
 
     Features found in ``seq_cache`` (the raw grids ``sequence_interest``
-    gathered) pool from the cached grid instead of gathering again.  (The
-    reference's ``skip_seq``, ``combiner`` and ``wts_override`` serve the
-    single-task transformer and DIN models, which are not ported.)"""
+    gathered) pool from the cached grid instead of gathering again.
+    ``skip_seq`` leaves out the attention-pairs' user (sequence) features,
+    as the single-sequence ``transformer`` model does; the item features
+    still pool.  (The reference's ``combiner`` and ``wts_override`` serve
+    only DIN, a paper baseline that is not ported yet.)"""
     parts = []
     if cfg.is_use_feature:
         parts.append(batch["features"])
+    skip = _attention_user_features(cfg) if skip_seq else frozenset()
     ts_feats = frozenset(cfg.attention_ts)
     sim_wanted = frozenset(x for pair in cfg.sim_embed for x in pair)
     sim_pool: dict[str, torch.Tensor] = {}
     for spec in cfg.embeddings:
+        if spec.feature in skip:
+            continue
         ids = batch[spec.feature + IDS]
         if spec.feature in ts_feats:
             ids = ts_bucketize(ids, spec.id_size)
@@ -196,32 +212,27 @@ def sequence_interest(params: Params, emb: Params, batch: dict,
 
 
 # ---------------------------------------------------------------------------
-# Stacked MMoE and task towers
+# MMoE and task towers
 # ---------------------------------------------------------------------------
 
 
 def mmoe_init(gen: torch.Generator, in_dim: int, cfg: DMTConfig,
               num_tasks: int = 2, dtype=torch.float32) -> Params:
-    if cfg.is_bn:
-        raise NotImplementedError("batch-norm MMoE experts are not ported")
     return {
         "experts": [mlp_init(gen, in_dim, cfg.hidden_units_bottom, None,
-                             dtype=dtype) for _ in range(cfg.num_experts)],
+                             is_bn=cfg.is_bn, dtype=dtype)
+                    for _ in range(cfg.num_experts)],
         "gates": [dense_init(gen, in_dim, cfg.num_experts, bias_init=0.1,
                              dtype=dtype) for _ in range(num_tasks)],
     }
 
 
-def mmoe_apply(params: Params, x: torch.Tensor, cfg: DMTConfig, *,
-               train: bool = False,
-               gen: Optional[torch.Generator] = None,
-               return_gates: bool = False):
-    """Per-task mixtures [B, hidden_bottom[-1]]: all experts in batched
-    matmuls (layer 0 as one [in, E * H0] product, deeper layers batched
-    over the expert axis), both gates in one product.  In training with
-    ``is_dropout``, expert layer i keeps with ``dropout_bottom[i]``.  With
-    ``return_gates`` also the per-task gate softmax [T, B, E], taken in
-    float32 of the same gate products (JAX ``MMoE.gate_values``)."""
+def _mmoe_stacked(params: Params, x: torch.Tensor, cfg: DMTConfig, *,
+                  train: bool, gen: Optional[torch.Generator]
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """All experts in batched matmuls (layer 0 as one [in, E * H0]
+    product, deeper layers batched over the expert axis), both gates in
+    one product: (experts [B, H, E], gate logits [B, T, E])."""
     experts = params["experts"]
     E = len(experts)
 
@@ -242,32 +253,68 @@ def mmoe_apply(params: Params, x: torch.Tensor, cfg: DMTConfig, *,
         y = maybe_dropout(torch.relu(
             torch.einsum("beh,ehk->bek", y, wi.to(y.dtype))
             + bi[None].to(y.dtype)), i)
-    experts_out = y.transpose(1, 2)                        # [B, H, E]
     gates = params["gates"]
     wg = torch.cat([g["w"] for g in gates], dim=1)
     bg = torch.cat([g["b"] for g in gates])
     gz = (x @ wg.to(x.dtype) + bg.to(x.dtype)).reshape(x.shape[0],
                                                         len(gates), E)
-    mix = torch.softmax(gz, dim=-1)                        # [B, T, E]
-    outs = [torch.einsum("bhe,be->bh", experts_out, mix[:, t])
-            for t in range(len(gates))]
+    return y.transpose(1, 2), gz
+
+
+def mmoe_apply(params: Params, state: State, x: torch.Tensor,
+               cfg: DMTConfig, *, train: bool = False,
+               gen: Optional[torch.Generator] = None,
+               return_gates: bool = False):
+    """Per-task mixtures [B, hidden_bottom[-1]] and the new state.  In
+    training with ``is_dropout``, expert layer i keeps with
+    ``dropout_bottom[i]``.  Without batch norm all experts run in batched
+    matmuls and both gates in one product; with it (the experts' moving
+    statistics) each expert is its own MLP and each gate its own product,
+    as in the reference.  With ``return_gates`` a third value: the
+    per-task gate softmax [T, B, E], taken in float32 of the same gate
+    products (JAX ``MMoE.gate_values``)."""
+    if not cfg.is_bn:
+        experts_out, gz = _mmoe_stacked(params, x, cfg, train=train,
+                                        gen=gen)
+        mix = torch.softmax(gz, dim=-1).unbind(1)          # T x [B, E]
+        new_state: State = {}
+    else:
+        outs, est = [], []
+        states = state.get("experts", [{}] * len(params["experts"]))
+        for p, st in zip(params["experts"], states):
+            y, st = mlp_apply(p, st, x, keep_probs=cfg.dropout_bottom,
+                              train=train, is_bn=True,
+                              is_dropout=cfg.is_dropout,
+                              bn_decay=cfg.bn_decay, gen=gen)
+            outs.append(y)
+            est.append(st)
+        experts_out = torch.stack(outs, dim=-1)            # [B, H, E]
+        gz = torch.stack([dense_apply(g, x) for g in params["gates"]],
+                         dim=1)                            # [B, T, E]
+        mix = [torch.softmax(gz[:, t], dim=-1) for t in range(gz.shape[1])]
+        new_state = {"experts": est}
+    outs = [torch.einsum("bhe,be->bh", experts_out, m) for m in mix]
     if return_gates:
-        return outs, torch.softmax(gz.float(), dim=-1).transpose(0, 1)
-    return outs
+        return (outs, new_state,
+                torch.softmax(gz.float(), dim=-1).transpose(0, 1))
+    return outs, new_state
 
 
 def tower_init(gen: torch.Generator, in_dim: int, cfg: DMTConfig,
                dtype=torch.float32) -> Params:
     """hidden_units_task relu layers + a 1-unit output with bias 0.1."""
     return mlp_init(gen, in_dim, cfg.hidden_units_task, cfg.output_units,
-                    out_bias_init=0.1, dtype=dtype)
+                    is_bn=cfg.is_bn, out_bias_init=0.1, dtype=dtype)
 
 
-def tower_apply(params: Params, x: torch.Tensor, cfg: DMTConfig, *,
-                train: bool = False,
-                gen: Optional[torch.Generator] = None) -> torch.Tensor:
-    return mlp_apply(params, x, keep_probs=cfg.dropout_task, train=train,
-                     is_dropout=cfg.is_dropout, gen=gen)
+def tower_apply(params: Params, state: State, x: torch.Tensor,
+                cfg: DMTConfig, *, train: bool = False,
+                gen: Optional[torch.Generator] = None
+                ) -> tuple[torch.Tensor, State]:
+    return mlp_apply(params, state, x, keep_probs=cfg.dropout_task,
+                     train=train, is_bn=cfg.is_bn,
+                     is_dropout=cfg.is_dropout, bn_decay=cfg.bn_decay,
+                     gen=gen)
 
 
 # ---------------------------------------------------------------------------
@@ -275,13 +322,17 @@ def tower_apply(params: Params, x: torch.Tensor, cfg: DMTConfig, *,
 # ---------------------------------------------------------------------------
 
 
+def bias_combiner_dim(cfg: DMTConfig) -> int:
+    return sum(s.dim for s in cfg.embeddings_bias)
+
+
 def bias_net_init(gen: torch.Generator, cfg: DMTConfig,
                   dtype=torch.float32) -> Params:
     """Bias-net tables keep the param dtype whatever their size, as in the
-    reference."""
-    in_dim = sum(s.dim for s in cfg.embeddings_bias)
+    reference; the bias net has no batch norm."""
     return {"emb": collection_init(gen, cfg.embeddings_bias, dtype),
-            "mlp": mlp_init(gen, in_dim, cfg.hidden_units_bias,
+            "mlp": mlp_init(gen, bias_combiner_dim(cfg),
+                            cfg.hidden_units_bias,
                             cfg.output_units, out_bias_init=0.0,
                             hidden_bias_init=0.0, w_init=glorot_uniform(),
                             dtype=dtype)}

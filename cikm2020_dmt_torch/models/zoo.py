@@ -1,17 +1,27 @@
-"""Model zoo: the flagship ``mmoe_transformer_unbias``.
+"""Model zoo: the DMT composition lattice
+(``cikm2020_dmt_tpu/models/zoo.py``).
 
-Same composition as ``cikm2020_dmt_tpu/models/zoo.py``: ``MMoE`` is the
-trunk (pooled features -> stacked MMoE -> click and order towers),
-``MMoETransformer`` adds the behavior-sequence interest states to its
-input, and ``MMoETransformerUnbias`` adds the bias net.  ``apply`` returns
-the relevance logits ``(click_logit, order_logit)`` and never runs the bias
-net, as the reference's ``is_predict=True`` does; with ``train=True`` (or
-``is_predict=False``, the eval step) the unbias model returns
-``((click_logit, order_logit), bias_logit)``, in training with dropout on,
-its randomness drawn from ``gen``.
+    mlp ⊂ embed_mlp ⊂ {multi_task, mmoe} ⊂ +transformer ⊂ +unbias
 
-Params are plain nested dicts with the reference's tree (logical
-``[R, D]`` tables), so ``convert.py`` copies a JAX init leaf by leaf.
+Each model is a pair of functions composed from ``models/components.py``:
+``init(gen)`` gives the params, ``init_state(params)`` the batch-norm
+moving statistics (``{}`` without ``is_bn``), and ``apply(params, batch,
+...)`` the logits:
+
+    single-task models:    y [B, 1]
+    multi-task models:     (click_logit, order_logit)
+    unbias, not predict:   ((click_logit, order_logit), bias_logit)
+    single-task unbias:    (rel_logit, bias_logit)
+    unbias with predict:   the relevance logits alone
+
+``is_predict`` defaults to ``not train`` (the Scorer's case); the eval step
+asks for the bias head with ``train=False, is_predict=False``.  In training
+with dropout on, the randomness is drawn from ``gen``.  ``apply(...,
+state=..., return_state=True)`` also returns the new model state (in
+training, the moving statistics after this batch).
+
+Params are plain nested dicts with the reference's tree (logical ``[R, D]``
+tables), so ``convert.py`` copies a JAX init leaf by leaf.
 """
 
 from __future__ import annotations
@@ -23,22 +33,21 @@ import torch
 from ..core.config import DMTConfig
 from ..data.schema import FeatureSchema
 from ..nn.embedding import collection_init
-from ..nn.layers import Params
+from ..nn.layers import Params, State, bn_state, mlp_apply, mlp_init
 from ..parallel.embedding_shard import EmbeddingEngine
 from .components import (bias_net_apply, bias_net_init, combiner_dim,
-                         embedding_combiner,
-                         interest_dim, mmoe_apply, mmoe_init,
-                         sequence_interest, sequences_init, tower_apply,
-                         tower_init)
+                         embedding_combiner, interest_dim, mmoe_apply,
+                         mmoe_init, sequence_interest, sequences_init,
+                         tower_apply, tower_init)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-class MMoE:
-    """Multi-gate mixture-of-experts over the pooled features."""
-
-    name = "mmoe"
-    use_interest = False
+class BaseModel:
+    name = "base"
+    num_tasks = 1
+    has_gates = False   # the MMoE family: ``apply(..., return_gates=True)``
+    has_tables = True   # params["emb"]: every model but mlp
 
     def __init__(self, cfg: DMTConfig, schema: Optional[FeatureSchema] = None):
         self.cfg = cfg
@@ -47,37 +56,148 @@ class MMoE:
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
         self.engine = EmbeddingEngine()
 
+    def _emb_init(self, gen: torch.Generator) -> Params:
+        return collection_init(gen, self.cfg.embeddings, self.dtype,
+                               self.cfg.table_bf16_threshold)
+
+    def _uncertainty(self, gen: torch.Generator, params: Params) -> Params:
+        """Kendall uncertainty loss-weight variables."""
+        if self.cfg.loss_weight_method == "uncertainty":
+            params["uncertainty"] = {
+                "click_weight": torch.zeros((1,), device=gen.device),
+                "order_weight": torch.zeros((1,), device=gen.device)}
+        return params
+
+    def _mlp(self, params, state, x, keep_probs, train, gen):
+        cfg = self.cfg
+        return mlp_apply(params, state, x, keep_probs=keep_probs,
+                         train=train, is_bn=cfg.is_bn,
+                         is_dropout=cfg.is_dropout, bn_decay=cfg.bn_decay,
+                         gen=gen)
+
+    def init(self, gen: torch.Generator) -> Params:
+        """Random params on ``gen``'s device, the reference's tree."""
+        raise NotImplementedError
+
+    def init_state(self, params: Params) -> State:
+        """The model state of a fresh model: zero moving statistics."""
+        return bn_state(params)
+
+    def forward(self, params: Params, state: State, batch: dict, *,
+                train: bool, gen: Optional[torch.Generator],
+                is_predict: bool):
+        """(logits, new state)."""
+        raise NotImplementedError
+
+    def apply(self, params: Params, batch: dict, *, train: bool = False,
+              gen: Optional[torch.Generator] = None,
+              is_predict: Optional[bool] = None,
+              state: Optional[State] = None, return_state: bool = False,
+              return_gates: bool = False):
+        """The logits of the contract above; with ``return_state``,
+        ``(logits, new state)``.  ``state`` defaults to a fresh model's.
+        With ``return_gates`` (the MMoE family only; others raise
+        ``ValueError``) the logits come as ``(logits, gates)``: the
+        per-task expert-gate softmax [T, B, E] in float32 from this same
+        forward (JAX ``MMoE.gate_values`` recomputes the trunk for it)."""
+        kw = {}
+        if return_gates:
+            if not self.has_gates:
+                raise ValueError(f"model_type {self.name!r} has no expert "
+                                 "gates (only the MMoE family has)")
+            kw["return_gates"] = True
+        if not state:
+            state = self.init_state(params) if self.cfg.is_bn else {}
+        if is_predict is None:
+            is_predict = not train
+        out, new_state = self.forward(params, state, batch, train=train,
+                                      gen=gen, is_predict=is_predict, **kw)
+        return (out, new_state) if return_state else out
+
+
+class MLP(BaseModel):
+    """Dense features only, one logit."""
+
+    name = "mlp"
+    has_tables = False
+
+    def init(self, gen):
+        cfg = self.cfg
+        return mlp_init(gen, cfg.feature_dimension, cfg.hidden_units,
+                        cfg.output_units, is_bn=cfg.is_bn, out_bias_init=0.0,
+                        dtype=self.dtype)
+
+    def forward(self, params, state, batch, *, train, gen, is_predict):
+        y, st = self._mlp(params, state,
+                          batch["features"].to(self.compute_dtype),
+                          self.cfg.dropout, train, gen)
+        return y.float(), st
+
+
+class EmbedMLP(BaseModel):
+    """Pooled embeddings and dense features -> MLP, one logit."""
+
+    name = "embed_mlp"
+
+    def init(self, gen):
+        cfg = self.cfg
+        params = {"emb": self._emb_init(gen)}
+        params["mlp"] = mlp_init(gen, combiner_dim(cfg), cfg.hidden_units,
+                                 cfg.output_units, is_bn=cfg.is_bn,
+                                 out_bias_init=0.0, dtype=self.dtype)
+        return params
+
+    def forward(self, params, state, batch, *, train, gen, is_predict):
+        x = embedding_combiner(params["emb"], batch, self.cfg,
+                               engine=self.engine).to(self.compute_dtype)
+        y, st = self._mlp(params["mlp"], state.get("mlp", {}), x,
+                          self.cfg.dropout, train, gen)
+        return y.float(), ({"mlp": st} if st else {})
+
+
+class EmbedMLPUnbias(EmbedMLP):
+    """embed_mlp plus the bias net: one relevance logit and the bias logit
+    (the reference dispatches this type but never committed its source;
+    the JAX package composes it from the shipped pieces, and so does the
+    port)."""
+
+    name = "embed_mlp_unbias"
+
+    def init(self, gen):
+        params = super().init(gen)
+        params["bias_net"] = bias_net_init(gen, self.cfg, self.dtype)
+        return params
+
+    def forward(self, params, state, batch, *, train, gen, is_predict):
+        y, st = super().forward(params, state, batch, train=train, gen=gen,
+                                is_predict=is_predict)
+        if is_predict:
+            return y, st
+        bias = bias_net_apply(params["bias_net"], batch, self.cfg,
+                              train=train, gen=gen, engine=self.engine)
+        return (y, bias.float()), st
+
+
+class _TwoTask(BaseModel):
+    """The two-task trunk input: [dense | pooled | interest] (the interest
+    states with ``use_interest``; their raw gathers feed the pooling)."""
+
+    num_tasks = 2
+    use_interest = False
+
     def _input_dim(self) -> int:
         dim = combiner_dim(self.cfg)
         if self.use_interest:
             dim += interest_dim(self.cfg)
         return dim
 
-    def init(self, gen: torch.Generator) -> Params:
-        """Random params on ``gen``'s device, the reference's tree."""
-        cfg = self.cfg
-        params: Params = {"emb": collection_init(
-            gen, cfg.embeddings, self.dtype, cfg.table_bf16_threshold)}
+    def _init_emb(self, gen) -> Params:
+        params: Params = {"emb": self._emb_init(gen)}
         if self.use_interest:
-            params["trans"] = sequences_init(gen, cfg, self.dtype)
-        params["mmoe"] = mmoe_init(gen, self._input_dim(), cfg, num_tasks=2,
-                                   dtype=self.dtype)
-        head_in = cfg.hidden_units_bottom[-1]
-        params["click"] = tower_init(gen, head_in, cfg, self.dtype)
-        params["order"] = tower_init(gen, head_in, cfg, self.dtype)
-        if cfg.loss_weight_method == "uncertainty":
-            params["uncertainty"] = {
-                "click_weight": torch.zeros((1,), device=gen.device),
-                "order_weight": torch.zeros((1,), device=gen.device)}
+            params["trans"] = sequences_init(gen, self.cfg, self.dtype)
         return params
 
-    def apply(self, params: Params, batch: dict, *, train: bool = False,
-              gen: Optional[torch.Generator] = None,
-              return_gates: bool = False):
-        """Relevance logits ``([B, 1], [B, 1])`` in float32.  With
-        ``return_gates``, ``(logits, gates)``: the per-task expert-gate
-        softmax [T, B, E] in float32 from this same forward (JAX
-        ``MMoE.gate_values`` recomputes the trunk for it)."""
+    def _input(self, params, batch, train, gen) -> torch.Tensor:
         cfg = self.cfg
         if self.use_interest:
             # interest first: the pooled combiner reuses its raw gathers
@@ -87,20 +207,112 @@ class MMoE:
                 gen=gen)
             x = embedding_combiner(params["emb"], batch, cfg,
                                    engine=self.engine, seq_cache=cache)
-            x = torch.cat([x.to(self.compute_dtype), interest], dim=-1)
-        else:
-            x = embedding_combiner(params["emb"], batch, cfg,
-                                   engine=self.engine).to(self.compute_dtype)
-        outs = mmoe_apply(params["mmoe"], x, cfg, train=train, gen=gen,
-                          return_gates=return_gates)
+            return torch.cat([x.to(self.compute_dtype), interest], dim=-1)
+        return embedding_combiner(params["emb"], batch, cfg,
+                                  engine=self.engine).to(self.compute_dtype)
+
+    def _towers(self, params, state, new_state, outs, train, gen):
+        """Click and order towers over the per-task inputs."""
+        click, st_c = tower_apply(params["click"], state.get("click", {}),
+                                  outs[0], self.cfg, train=train, gen=gen)
+        order, st_o = tower_apply(params["order"], state.get("order", {}),
+                                  outs[1], self.cfg, train=train, gen=gen)
+        if st_c:
+            new_state["click"], new_state["order"] = st_c, st_o
+        return (click.float(), order.float()), new_state
+
+
+class MultiTask(_TwoTask):
+    """Shared bottom MLP, then the click and order towers."""
+
+    name = "multi_task"
+
+    def init(self, gen):
+        cfg = self.cfg
+        params = self._init_emb(gen)
+        params["bottom"] = mlp_init(gen, self._input_dim(),
+                                    cfg.hidden_units_bottom, None,
+                                    is_bn=cfg.is_bn, dtype=self.dtype)
+        head_in = cfg.hidden_units_bottom[-1]
+        # task towers: output bias 0.0 (the reference's multi_task)
+        for task in ("click", "order"):
+            params[task] = mlp_init(gen, head_in, cfg.hidden_units_task,
+                                    cfg.output_units, is_bn=cfg.is_bn,
+                                    out_bias_init=0.0, dtype=self.dtype)
+        return self._uncertainty(gen, params)
+
+    def forward(self, params, state, batch, *, train, gen, is_predict):
+        x = self._input(params, batch, train, gen)
+        y, st = self._mlp(params["bottom"], state.get("bottom", {}), x,
+                          self.cfg.dropout_bottom, train, gen)
+        new_state: State = {"bottom": st} if st else {}
+        return self._towers(params, state, new_state, (y, y), train, gen)
+
+
+class MMoE(_TwoTask):
+    """Multi-gate mixture-of-experts over the pooled features."""
+
+    name = "mmoe"
+    has_gates = True
+
+    def init(self, gen):
+        cfg = self.cfg
+        params = self._init_emb(gen)
+        params["mmoe"] = mmoe_init(gen, self._input_dim(), cfg, num_tasks=2,
+                                   dtype=self.dtype)
+        head_in = cfg.hidden_units_bottom[-1]
+        params["click"] = tower_init(gen, head_in, cfg, self.dtype)
+        params["order"] = tower_init(gen, head_in, cfg, self.dtype)
+        return self._uncertainty(gen, params)
+
+    def forward(self, params, state, batch, *, train, gen, is_predict,
+                return_gates=False):
+        x = self._input(params, batch, train, gen)
+        res = mmoe_apply(params["mmoe"], state.get("mmoe", {}), x, self.cfg,
+                         train=train, gen=gen, return_gates=return_gates)
+        outs, st = res[0], res[1]
+        new_state: State = {"mmoe": st} if st else {}
+        logits, new_state = self._towers(params, state, new_state, outs,
+                                         train, gen)
         if return_gates:
-            outs, gates = outs
-        click = tower_apply(params["click"], outs[0], cfg, train=train,
-                            gen=gen)
-        order = tower_apply(params["order"], outs[1], cfg, train=train,
-                            gen=gen)
-        logits = click.float(), order.float()
-        return (logits, gates) if return_gates else logits
+            return (logits, res[2]), new_state
+        return logits, new_state
+
+
+class Transformer(BaseModel):
+    """Single-logit deep-interest transformer: the combiner skips the
+    sequences' user features, the interest states join the MLP input."""
+
+    name = "transformer"
+
+    def init(self, gen):
+        cfg = self.cfg
+        params = {"emb": self._emb_init(gen),
+                  "trans": sequences_init(gen, cfg, self.dtype)}
+        params["mlp"] = mlp_init(
+            gen, combiner_dim(cfg, skip_seq=True) + interest_dim(cfg),
+            cfg.hidden_units, cfg.output_units, is_bn=cfg.is_bn,
+            out_bias_init=0.0, dtype=self.dtype)
+        return params
+
+    def forward(self, params, state, batch, *, train, gen, is_predict):
+        cfg = self.cfg
+        interest, cache = sequence_interest(
+            params["trans"], params["emb"], batch, cfg, engine=self.engine,
+            dtype=self.compute_dtype, train=train, gen=gen)
+        x = embedding_combiner(params["emb"], batch, cfg, skip_seq=True,
+                               engine=self.engine, seq_cache=cache)
+        x = torch.cat([x.to(self.compute_dtype), interest], dim=-1)
+        y, st = self._mlp(params["mlp"], state.get("mlp", {}), x,
+                          cfg.dropout, train, gen)
+        return y.float(), ({"mlp": st} if st else {})
+
+
+class MultiTaskTransformer(MultiTask):
+    """Shared bottom over [dense | pooled | interest]."""
+
+    name = "multi_task_transformer"
+    use_interest = True
 
 
 class MMoETransformer(MMoE):
@@ -116,40 +328,59 @@ class MMoETransformerUnbias(MMoETransformer):
 
     name = "mmoe_transformer_unbias"
 
-    def init(self, gen: torch.Generator) -> Params:
+    def init(self, gen):
         params = super().init(gen)
         params["bias_net"] = bias_net_init(gen, self.cfg, self.dtype)
         return params
 
-    def apply(self, params: Params, batch: dict, *, train: bool = False,
-              gen: Optional[torch.Generator] = None,
-              is_predict: Optional[bool] = None,
-              return_gates: bool = False):
-        """``is_predict`` (default: not ``train``, the Scorer's case): the
-        relevance logits.  Otherwise ``((click_logit, order_logit),
-        bias_logit)``, each [B, 1] float32, with dropout where ``train``
-        (the eval step asks for this with ``train=False``).  With
-        ``return_gates``, ``(that, gates)`` as ``MMoE.apply`` gives
-        them."""
-        rel = super().apply(params, batch, train=train, gen=gen,
-                            return_gates=return_gates)
+    def forward(self, params, state, batch, *, train, gen, is_predict,
+                return_gates=False):
+        rel, new_state = super().forward(params, state, batch, train=train,
+                                         gen=gen, is_predict=is_predict,
+                                         return_gates=return_gates)
         if return_gates:
             rel, gates = rel
-        if is_predict is None:
-            is_predict = not train
         out = rel
         if not is_predict:
             bias = bias_net_apply(params["bias_net"], batch, self.cfg,
                                   train=train, gen=gen, engine=self.engine)
             out = rel, bias.float()
-        return (out, gates) if return_gates else out
+        return ((out, gates) if return_gates else out), new_state
+
+
+MODEL_REGISTRY = {
+    m.name: m for m in (
+        MLP, EmbedMLP, EmbedMLPUnbias, MultiTask, MMoE, Transformer,
+        MultiTaskTransformer, MMoETransformer, MMoETransformerUnbias)
+}
+
+# the paper baselines of the JAX package's models/baselines.py, which the
+# port does not carry yet
+BASELINE_MODEL_TYPES = ("lr", "wnd", "dcn", "din", "dien")
+
+# reference dispatch names whose model sources were never committed; the
+# JAX package does not build them either
+UNRECONSTRUCTIBLE_MODEL_TYPES = (
+    "id_mlp", "embed_mlp_mulnet", "din_id", "din_v2", "dien_v2")
+
+
+def model_class(model_type: str) -> type:
+    """The registry's class of ``model_type``; a paper baseline or an
+    unknown name raises ``ValueError``."""
+    if model_type in BASELINE_MODEL_TYPES:
+        raise ValueError(
+            f"model_type {model_type!r} is not ported: the paper baselines "
+            f"{', '.join(BASELINE_MODEL_TYPES)} are the next part of the "
+            f"port; available: {sorted(MODEL_REGISTRY)}")
+    try:
+        return MODEL_REGISTRY[model_type]
+    except KeyError:
+        raise ValueError(
+            f"unknown model_type {model_type!r}; available: "
+            f"{sorted(MODEL_REGISTRY)}") from None
 
 
 def build_model(cfg: DMTConfig,
-                schema: Optional[FeatureSchema] = None) -> MMoE:
-    """Dispatch by ``model_type``; only the flagship is ported."""
-    if cfg.model_type != MMoETransformerUnbias.name:
-        raise ValueError(
-            f"model_type {cfg.model_type!r} is not ported; available: "
-            f"[{MMoETransformerUnbias.name!r}]")
-    return MMoETransformerUnbias(cfg, schema)
+                schema: Optional[FeatureSchema] = None) -> BaseModel:
+    """Dispatch by ``model_type`` (reference inference_mlp.py:25-68)."""
+    return model_class(cfg.model_type)(cfg, schema)

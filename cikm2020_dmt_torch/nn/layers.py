@@ -1,14 +1,21 @@
-"""Core functional layers: dense, MLP stacks, dropout and layer norm.
+"""Core functional layers: dense, batch norm, MLP stacks, dropout and
+layer norm.
 
 Params are plain nested dicts of tensors with the reference layout: a dense
 layer is ``{"w": [in, out], "b": [out]}``, an MLP is ``{"layer{i}":
-{"dense": ...}, "out": {"dense": ...}}``.  Initializers take an explicit
-``torch.Generator`` and create their tensors on the generator's device.
+{"dense": ..., "bn": ...}, "out": {"dense": ..., "bn": ...}}`` (``"bn"``
+only with batch norm).  Initializers take an explicit ``torch.Generator``
+and create their tensors on the generator's device.  Batch norm's moving
+statistics live in a separate ``state`` tree, ``{"layer{i}":
+{"moving_mean", "moving_var"}, ...}``, which ``bn_state`` builds from the
+params; without batch norm the state is ``{}``.
 
 Numerical semantics follow ``cikm2020_dmt_tpu/nn/layers.py``: dense towers
 use truncated-normal(0.1) weights and a constant bias, transformer and
-embedding weights glorot-uniform, and layer norm puts eps=1e-8 inside the
-square root with float32 statistics.
+embedding weights glorot-uniform, batch norm eps=1e-4 inside the inverse
+square root with the population variance and moving statistics that start
+at zero, and layer norm puts eps=1e-8 inside the square root with float32
+statistics.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from typing import Callable, Optional
 import torch
 
 Params = dict
+State = dict
 Init = Callable[[torch.Generator, tuple, torch.dtype], torch.Tensor]
 
 
@@ -100,46 +108,146 @@ def dropout_rate(gen: torch.Generator, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# MLP stack (hidden relu layers + optional linear output)
+# Batch norm (the reference's hand-rolled one, moving stats in a state tree)
 # ---------------------------------------------------------------------------
+
+
+def batchnorm_init(gen: torch.Generator, dim: int,
+                   dtype=torch.float32) -> Params:
+    init = truncated_normal(0.1)
+    return {"scale": init(gen, (dim,), dtype),
+            "shift": init(gen, (dim,), dtype)}
+
+
+def bn_state(params):
+    """The zero moving statistics of every batch-norm layer of a param
+    tree, in the reference's state tree: a dict holding ``"bn"`` becomes
+    ``{"moving_mean", "moving_var"}`` (zeros in the param dtype), a
+    subtree without batch norm is left out, so a model without it has the
+    state ``{}``."""
+    if isinstance(params, dict):
+        if "bn" in params:
+            z = params["bn"]["scale"]
+            return {"moving_mean": torch.zeros_like(z),
+                    "moving_var": torch.zeros_like(z)}
+        out = {k: bn_state(v) for k, v in params.items()}
+        return {k: v for k, v in out.items() if v}
+    if isinstance(params, (list, tuple)):
+        out = [bn_state(v) for v in params]
+        return out if any(out) else {}
+    return {}
+
+
+def batchnorm_apply(params: Params, state: State, x: torch.Tensor, *,
+                    train: bool, decay: float, eps: float = 1e-4
+                    ) -> tuple[torch.Tensor, State]:
+    """``(x - mean) * rsqrt(var + eps) * scale + shift`` over the batch
+    axis.  In training the batch's mean and population variance (summed in
+    float32, kept in x's dtype) normalize, and the moving statistics
+    become ``moving * decay + batch * (1 - decay)`` (no gradient flows into
+    them); in eval the moving statistics normalize, cast to x's dtype."""
+    if train:
+        xf = x.float()
+        mean = xf.mean(dim=0).to(x.dtype)
+        var = xf.var(dim=0, unbiased=False).to(x.dtype)
+        new_state = {
+            "moving_mean": (state["moving_mean"] * decay
+                            + mean.detach() * (1 - decay)),
+            "moving_var": (state["moving_var"] * decay
+                           + var.detach() * (1 - decay))}
+    else:
+        mean, var = state["moving_mean"], state["moving_var"]
+        new_state = state
+    inv = torch.rsqrt(var.to(x.dtype) + eps)
+    y = ((x - mean.to(x.dtype)) * inv * params["scale"].to(x.dtype)
+         + params["shift"].to(x.dtype))
+    return y, new_state
+
+
+# ---------------------------------------------------------------------------
+# MLP stack: reference dense layers (dense -> bn -> activation -> dropout),
+# hidden relu layers and an optional linear output
+# ---------------------------------------------------------------------------
+
+
+def dense_layer_init(gen: torch.Generator, in_dim: int, out_dim: int, *,
+                     bias_init: float, is_bn: bool = False,
+                     w_init: Optional[Init] = None,
+                     dtype=torch.float32) -> Params:
+    params: Params = {"dense": dense_init(gen, in_dim, out_dim,
+                                          w_init=w_init, bias_init=bias_init,
+                                          dtype=dtype)}
+    if is_bn:
+        params["bn"] = batchnorm_init(gen, out_dim, dtype)
+    return params
+
+
+def dense_layer_apply(params: Params, state: State, x: torch.Tensor, *,
+                      relu: bool, keep_prob: float = 1.0,
+                      train: bool = False, is_bn: bool = False,
+                      is_dropout: bool = False, bn_decay: float = 0.999,
+                      gen: Optional[torch.Generator] = None
+                      ) -> tuple[torch.Tensor, State]:
+    y = dense_apply(params["dense"], x)
+    new_state = state
+    if is_bn:
+        y, new_state = batchnorm_apply(params["bn"], state, y, train=train,
+                                       decay=bn_decay)
+    if relu:
+        y = torch.relu(y)
+    if is_dropout and train and keep_prob < 1.0:
+        y = dropout_keep(gen, y, keep_prob)
+    return y, new_state
 
 
 def mlp_init(gen: torch.Generator, in_dim: int, hidden: tuple[int, ...],
              out_dim: Optional[int], *, is_bn: bool = False,
              out_bias_init: float = 0.0, hidden_bias_init: float = 0.1,
              w_init: Optional[Init] = None, dtype=torch.float32) -> Params:
-    if is_bn:
-        raise NotImplementedError("batch-norm MLPs are not ported yet")
+    """With ``is_bn`` every layer, the output included, has a batch norm
+    after its dense product; ``bn_state`` gives its moving statistics."""
     params: Params = {}
     dim = in_dim
     for i, size in enumerate(hidden):
-        params[f"layer{i}"] = {"dense": dense_init(
-            gen, dim, size, w_init=w_init, bias_init=hidden_bias_init,
-            dtype=dtype)}
+        params[f"layer{i}"] = dense_layer_init(
+            gen, dim, size, bias_init=hidden_bias_init, is_bn=is_bn,
+            w_init=w_init, dtype=dtype)
         dim = size
     if out_dim is not None:
-        params["out"] = {"dense": dense_init(
-            gen, dim, out_dim, w_init=w_init, bias_init=out_bias_init,
-            dtype=dtype)}
+        params["out"] = dense_layer_init(
+            gen, dim, out_dim, bias_init=out_bias_init, is_bn=is_bn,
+            w_init=w_init, dtype=dtype)
     return params
 
 
-def mlp_apply(params: Params, x: torch.Tensor, *,
+def mlp_apply(params: Params, state: State, x: torch.Tensor, *,
               keep_probs: tuple[float, ...] = (), train: bool = False,
-              is_dropout: bool = False,
-              gen: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Relu hidden layers, linear output.  In training with
-    ``is_dropout``, hidden layer i keeps with ``keep_probs[i]``."""
+              is_bn: bool = False, is_dropout: bool = False,
+              bn_decay: float = 0.999,
+              gen: Optional[torch.Generator] = None
+              ) -> tuple[torch.Tensor, State]:
+    """Relu hidden layers, linear output; returns (y, new state).  In
+    training with ``is_dropout``, hidden layer i keeps with
+    ``keep_probs[i]``."""
+    new_state: State = {}
     y = x
     n_hidden = sum(1 for k in params if k.startswith("layer"))
     for i in range(n_hidden):
-        y = torch.relu(dense_apply(params[f"layer{i}"]["dense"], y))
+        name = f"layer{i}"
         kp = keep_probs[i] if i < len(keep_probs) else 1.0
-        if is_dropout and train and kp < 1.0:
-            y = dropout_keep(gen, y, kp)
+        y, st = dense_layer_apply(
+            params[name], state.get(name, {}), y, relu=True, keep_prob=kp,
+            train=train, is_bn=is_bn, is_dropout=is_dropout,
+            bn_decay=bn_decay, gen=gen)
+        if st:
+            new_state[name] = st
     if "out" in params:
-        y = dense_apply(params["out"]["dense"], y)
-    return y
+        y, st = dense_layer_apply(
+            params["out"], state.get("out", {}), y, relu=False, train=train,
+            is_bn=is_bn, bn_decay=bn_decay)
+        if st:
+            new_state["out"] = st
+    return y, new_state
 
 
 # ---------------------------------------------------------------------------

@@ -12,10 +12,11 @@ rows, which the scorer broadcasts to the B candidates.
     normalized = clip(clip(raw, 0, max) * scale - const_vec, -0.99, 0.99)
     Scores     = (w0 * sigmoid(click) + w1 * sigmoid(order)) / (w0 + w1)
 
-with relevance-only logits (the bias head is dropped).  ``export_model``
-writes a bundle of a checkpoint (``{export_dir}/params.pt``, one
-``torch.save`` file of the params written as checkpoints are, beside the
-JAX bundle's ``descriptor.json`` and ``norm.npz``); with
+with relevance-only logits (the bias head is dropped; a single-task model
+gives one probability for both tasks).  ``export_model`` writes a bundle of
+a checkpoint (``{export_dir}/params.pt``, one ``torch.save`` file of the
+params and the model state written as checkpoints are, beside the JAX
+bundle's ``descriptor.json`` and ``norm.npz``); with
 ``export_int8_rows`` the large tables ship int8 with per-row float32
 scales (``quantize_tables``), grouped as the reference's lane-packed
 storage groups rows.  ``load_scorer`` reads a bundle back into a
@@ -186,13 +187,16 @@ class Scorer:
     """Scores assembled requests on one device.
 
     ``params`` is the model's param tree (``model.init``,
-    ``convert.params_from_jax`` or a bundle's, int8 tables included); it
-    is moved to ``device`` once.  The default device is the card: on a
-    machine without CUDA the constructor raises instead of scoring on the
-    CPU.  Pass ``device="cpu"`` for the plain PyTorch path."""
+    ``convert.params_from_jax`` or a bundle's, int8 tables included) and
+    ``model_state`` its batch-norm moving statistics (default a fresh
+    model's); both are moved to ``device`` once.  The default device is
+    the card: on a machine without CUDA the constructor raises instead of
+    scoring on the CPU.  Pass ``device="cpu"`` for the plain PyTorch
+    path."""
 
     def __init__(self, cfg: DMTConfig, params, scale: np.ndarray,
-                 const_vec: np.ndarray, device="cuda"):
+                 const_vec: np.ndarray, device="cuda",
+                 model_state: Optional[dict] = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -201,6 +205,8 @@ class Scorer:
         self.cfg = cfg
         self.model = build_model(cfg)
         self.params = tree_map(lambda t: t.to(self.device), params)
+        self.model_state = tree_map(lambda t: t.to(self.device),
+                                    model_state or {})
         self.scale = torch.as_tensor(scale, dtype=torch.float32,
                                      device=self.device)
         self.const_vec = torch.as_tensor(const_vec, dtype=torch.float32,
@@ -223,7 +229,7 @@ class Scorer:
     def _score(self, b: dict) -> dict:
         b["features"] = normalize_dense(b["raw_features"], self.scale,
                                         self.const_vec)
-        logits = self.model.apply(self.params, b)
+        logits = self.model.apply(self.params, b, state=self.model_state)
         p_ctr, p_cvr = scores_from_logits(self.cfg, logits, rel_only=True)
         scores = (self._w[0] * p_ctr + self._w[1] * p_cvr) / self._wsum
         return {"Scores": scores, "click_Scores": p_ctr,
@@ -343,12 +349,13 @@ def quantize_tables(cfg: DMTConfig, params: dict, rows_threshold: int
 
 def export_model(cfg: DMTConfig, ckpt_step: int,
                  export_dir: Optional[str] = None) -> str:
-    """Bundles ``model.ckpt-{ckpt_step}``'s params, the normalization
-    constants and a descriptor, on the host; returns the bundle's
-    directory.
+    """Bundles ``model.ckpt-{ckpt_step}``'s params and model state, the
+    normalization constants and a descriptor, on the host; returns the
+    bundle's directory.
 
     Layout (replaces the TF SavedModel dir, export_model.py:121-137):
-        {export_dir}/params.pt         the params (``torch.save``)
+        {export_dir}/params.pt         {"params", "model_state"}
+                                       (``torch.save``)
         {export_dir}/descriptor.json
         {export_dir}/norm.npz          scale + const_vec
 
@@ -358,7 +365,8 @@ def export_model(cfg: DMTConfig, ckpt_step: int,
 
     export_dir = os.path.abspath(export_dir or os.path.join(
         cfg.model_path, "frozen", f"ckpt-{ckpt_step}"))
-    params = _restore_for_eval(CheckpointManager(cfg.model_path), ckpt_step)
+    params, mstate = _restore_for_eval(CheckpointManager(cfg.model_path),
+                                       ckpt_step)
     mean = read_stat_vector(cfg.train_data_mean_path, cfg.feature_dimension)
     std = read_stat_vector(cfg.train_data_std_path, cfg.feature_dimension)
     scale, const_vec = norm_constants(mean, std)
@@ -368,7 +376,8 @@ def export_model(cfg: DMTConfig, ckpt_step: int,
                                               cfg.export_int8_rows)
 
     os.makedirs(export_dir, exist_ok=True)
-    save_file(params, os.path.join(export_dir, PARAMS_FILE))
+    save_file({"params": params, "model_state": mstate},
+              os.path.join(export_dir, PARAMS_FILE))
     np.savez(os.path.join(export_dir, "norm.npz"),
              scale=scale, const_vec=const_vec)
     with open(os.path.join(export_dir, "descriptor.json"), "w") as f:
@@ -393,12 +402,13 @@ def load_scorer(cfg: DMTConfig, export_dir: str, device="cuda") -> Scorer:
     export_dir = os.path.abspath(export_dir)
     with open(os.path.join(export_dir, "descriptor.json")) as f:
         desc = json.load(f)
-    params = torch.load(os.path.join(export_dir, PARAMS_FILE),
+    bundle = torch.load(os.path.join(export_dir, PARAMS_FILE),
                         map_location=device, weights_only=True)
+    params = bundle["params"]
     for name in desc.get("int8_tables", ()):
         if not isinstance(params["emb"][name], dict):
             raise ValueError(f"bundle {export_dir}: {name} is listed as "
                              "int8 but holds no int8 table")
     norm = np.load(os.path.join(export_dir, "norm.npz"))
     return Scorer(cfg, params, norm["scale"], norm["const_vec"],
-                  device=device)
+                  device=device, model_state=bundle["model_state"])

@@ -1,10 +1,12 @@
 """Evaluator and predict: the checkpoint-polling eval loop and the scoring
 of test splits (``cikm2020_dmt_tpu/train/evaluate.py``).
 
-- ``make_eval_step``: the forward with ``train=False`` (dropout off), the
-  flagship's ``multi_task_unbias_loss``, the scores (``rel_only`` drops
-  the bias head) and the streaming metric update weighted by ``valid``;
-  with ``collect_gates`` also the valid-weighted sum of the per-task
+- ``make_eval_step``: the forward with ``train=False`` (dropout off, batch
+  norm on its moving statistics), the model family's loss
+  (``losses.model_loss``), the scores (``rel_only`` drops the bias head;
+  a single-task model gives one probability for both tasks) and the
+  streaming metric update weighted by ``valid``; with ``collect_gates``
+  (the MMoE family only) also the valid-weighted sum of the per-task
   expert-gate softmax, taken from the same forward.
 - ``run_eval``: drains an eval split read from files by the C++ assembler
   (``train/loop.make_input_stream``: unshuffled, the last batch padded),
@@ -22,9 +24,9 @@ of test splits (``cikm2020_dmt_tpu/train/evaluate.py``).
   grouped and overall AUC, optionally the blend-weight grid search) and a
   detail file.
 
-Only the flagship model (``mmoe_transformer_unbias``) is ported; any other
-model type raises.  Every entry point runs on the card unless asked for
-``device="cpu"``, and raises where there is no card.
+Every model of the zoo's registry evaluates; a paper baseline or an
+unknown model type raises.  Every entry point runs on the card unless
+asked for ``device="cpu"``, and raises where there is no card.
 """
 
 from __future__ import annotations
@@ -44,18 +46,11 @@ from ..data.pipeline import Batch, device_batch, prefetch
 from ..metrics import offline
 from ..metrics.streaming import (task_metrics_init, task_metrics_update,
                                  task_metrics_values)
-from ..models.zoo import MMoE, build_model
+from ..models.zoo import BaseModel, build_model, model_class
 from ..nn.layers import tree_map
-from .losses import multi_task_unbias_loss, scores_from_logits
+from .losses import model_loss, scores_from_logits
 
-PORTED = "mmoe_transformer_unbias"
 TASKS = ("click", "order")
-
-
-def _check_model(cfg: DMTConfig) -> None:
-    if cfg.model_type != PORTED or not cfg.is_unbias_model:
-        raise ValueError(f"eval: model_type {cfg.model_type!r} is not "
-                         f"ported; available: [{PORTED!r}]")
 
 
 def check_device(device, who: str) -> torch.device:
@@ -69,21 +64,26 @@ def check_device(device, who: str) -> torch.device:
     return device
 
 
-def make_eval_step(cfg: DMTConfig, model: MMoE, rel_only: bool = False,
+def make_eval_step(cfg: DMTConfig, model: BaseModel, rel_only: bool = False,
                    collect_gates: bool = False):
-    """``eval_step(params, metrics, batch) -> (metrics, p_ctr, p_cvr)`` on
-    the device of ``batch``'s tensors; with ``collect_gates`` a fourth
-    value, the valid-weighted sum of the gate softmax ``[T, E]``."""
-    _check_model(cfg)
+    """``eval_step(params, metrics, batch, model_state=None) -> (metrics,
+    p_ctr, p_cvr)`` on the device of ``batch``'s tensors (``model_state``
+    defaults to a fresh model's); with ``collect_gates`` a fourth value,
+    the valid-weighted sum of the gate softmax ``[T, E]``.  A model type
+    outside the registry raises ``ValueError``, and so does
+    ``collect_gates`` on a model without gates."""
+    if not model_class(cfg.model_type).has_gates and collect_gates:
+        raise ValueError(f"eval: model_type {cfg.model_type!r} has no "
+                         "expert gates to collect")
 
     @torch.inference_mode()
-    def eval_step(params, metrics, batch):
+    def eval_step(params, metrics, batch, model_state=None):
         out = model.apply(params, batch, train=False, is_predict=False,
-                          return_gates=collect_gates)
+                          state=model_state, return_gates=collect_gates)
         if collect_gates:
             out, gates = out
-        loss = multi_task_unbias_loss(cfg, out, batch["mask"],
-                                      params.get("uncertainty"))
+        loss = model_loss(cfg, model.num_tasks, out, params, batch,
+                          train=False)
         p_ctr, p_cvr = scores_from_logits(cfg, out, rel_only=rel_only)
         metrics = task_metrics_update(
             metrics, mask=batch["mask"], p_ctr=p_ctr, p_cvr=p_cvr,
@@ -96,11 +96,12 @@ def make_eval_step(cfg: DMTConfig, model: MMoE, rel_only: bool = False,
     return eval_step
 
 
-def run_eval(cfg: DMTConfig, model: MMoE, params, data_path: Optional[str],
-             batch_size: int, *, rel_only: bool = False,
+def run_eval(cfg: DMTConfig, model: BaseModel, params,
+             data_path: Optional[str], batch_size: int, *,
+             rel_only: bool = False,
              data_iter: Optional[Iterable[Batch]] = None,
              collect_gates: bool = False, detail_file: Optional[str] = None,
-             device="cuda"):
+             device="cuda", model_state: Optional[dict] = None):
     """Drains an eval split on ``device``; returns (metric values, headers,
     p_clk, p_ord), the scores float32 numpy arrays over the valid rows.
 
@@ -111,12 +112,16 @@ def run_eval(cfg: DMTConfig, model: MMoE, params, data_path: Optional[str],
     threshold; every offline metric takes either.  With ``detail_file``,
     "header\\tp_clk\\tp_ord" lines are appended batch by batch.  With
     ``collect_gates`` a fifth value: the valid-weighted mean gate softmax
-    per task, ``[num_tasks, num_experts]`` float64.  The default device is
-    the card: without CUDA this raises.  Pass ``device="cpu"`` for the
-    plain path."""
+    per task, ``[num_tasks, num_experts]`` float64 (the MMoE family
+    only).  ``model_state`` is the checkpoint's (batch norm's moving
+    statistics; default a fresh model's).  The default device is the
+    card: without CUDA this raises.  Pass ``device="cpu"`` for the plain
+    path."""
     device = check_device(device, "run_eval")
     step_fn = make_eval_step(cfg, model, rel_only, collect_gates)
     params = tree_map(lambda t: t.to(device), params)
+    if model_state is not None:
+        model_state = tree_map(lambda t: t.to(device), model_state)
     metrics = task_metrics_init(device)
     collector = offline.HeaderCollector(cfg.header_schema)
     clk_scores: list[np.ndarray] = []
@@ -132,7 +137,8 @@ def run_eval(cfg: DMTConfig, model: MMoE, params, data_path: Optional[str],
     detail = open(detail_file, "a") if detail_file else None
     try:
         for batch in data_iter:
-            out = step_fn(params, metrics, device_batch(batch, device))
+            out = step_fn(params, metrics, device_batch(batch, device),
+                          model_state)
             metrics, p_ctr, p_cvr = out[:3]
             n_valid = int(batch["valid"].sum())
             pc = p_ctr[:n_valid].cpu().numpy()
@@ -196,12 +202,14 @@ def _write_offline_metrics(cfg: DMTConfig, headers, total_score,
     return metric_sets
 
 
-def _restore_for_eval(ckpt: CheckpointManager, step: int) -> dict:
-    """The params of ``model.ckpt-{step}`` on the host.  The port's
-    checkpoint is one train state whatever the optimizer layout
+def _restore_for_eval(ckpt: CheckpointManager, step: int
+                      ) -> tuple[dict, dict]:
+    """(params, model state) of ``model.ckpt-{step}`` on the host.  The
+    port's checkpoint is one train state whatever the optimizer layout
     (``core/checkpoint.py``), so no template is needed; eval reads only
-    its params."""
-    return ckpt.restore(step, "cpu")["params"]
+    these two (a checkpoint without a model state has the state ``{}``)."""
+    state = ckpt.restore(step, "cpu")
+    return state["params"], state.get("model_state", {})
 
 
 def validation(cfg: DMTConfig, once: bool = False,
@@ -227,10 +235,10 @@ def validation(cfg: DMTConfig, once: bool = False,
             time.sleep(poll_interval)
             continue
         step = new_step
+        params, mstate = _restore_for_eval(ckpt, step)
         vals, headers, p_clk, p_ord = run_eval(
-            cfg, model, _restore_for_eval(ckpt, step),
-            cfg.validation_data_path, cfg.validation_batch_size,
-            device=device)
+            cfg, model, params, cfg.validation_data_path,
+            cfg.validation_batch_size, device=device, model_state=mstate)
         log_line(f"validation @ step {step}: " + " | ".join(
             f"{k} {v:.6f}" for k, v in vals.items()))
         lines = [f">> iter_steps:{step}"] + [
@@ -260,7 +268,8 @@ def predict(cfg: DMTConfig, ckpt_step: int, test_tag: str = "",
     files, compute the offline metrics; returns them per path."""
     device = check_device(device, "predict")
     model = build_model(cfg)
-    params = _restore_for_eval(CheckpointManager(cfg.model_path), ckpt_step)
+    params, mstate = _restore_for_eval(CheckpointManager(cfg.model_path),
+                                       ckpt_step)
     paths = (cfg.test_data_path_ord if test_tag == "ord"
              else cfg.test_data_path).split(",")
     rel_only = test_score_method == "rel"
@@ -281,10 +290,12 @@ def predict(cfg: DMTConfig, ckpt_step: int, test_tag: str = "",
         # the mmoe family's expert-gate distributions go into the result
         # file (the reference fetches the gate softmax by name each batch,
         # run_dnn.py:721-725,777-814)
-        vals, headers, p_clk, p_ord, gate_mean = run_eval(
+        out = run_eval(
             cfg, model, params, test_path, cfg.test_batch_size,
-            rel_only=rel_only, collect_gates=True, detail_file=detail_file,
-            device=device)
+            rel_only=rel_only, collect_gates=model.has_gates,
+            detail_file=detail_file, device=device, model_state=mstate)
+        vals, headers, p_clk, p_ord = out[:4]
+        gate_mean = out[4] if model.has_gates else None
         log_line(f"test[{test_path}]: " + " | ".join(
             f"{k} {v:.6f}" for k, v in vals.items()))
         log_to_file("\n".join([f">> ckpt:{ckpt_step} path:{test_path}"] +

@@ -1,21 +1,26 @@
 """Single-device training step (``cikm2020_dmt_tpu/train/loop.py``
-``_lazy_step`` and the metric update of its ``step_fn``).
+``step_fn`` and its ``_lazy_step``), for every model of the zoo.
 
 One ``Trainer.train_step``:
 
-1. ``collect`` the id union of every lazy-Adam table (``train/lazy.py``);
+1. ``collect`` the id union of every lazy-Adam table (``train/lazy.py``;
+   under Adam without dense weight decay, tables of at least
+   ``dedup_rows_threshold`` rows);
 2. forward with those tables' lookups sliced from the union grid, the
-   ``multi_task_unbias_loss``, and its backward;
-3. dense Adam (``train/optim.py``) on every other leaf;
+   model family's loss (``losses.model_loss``, plus ``l2_regularization``
+   where ``wnd_wd`` > 1e-5), and its backward;
+3. the dense optimizer (``train/optim.make_optimizer``) on every other
+   leaf, the tables outside the plan included;
 4. LazyAdam on the touched rows of each lazy table, in place;
 5. the streaming AUC / precision / recall / mean-loss update.
 
-The train state is a dict: ``params``, the dense Adam state ``opt``
-(``m``, ``v``, ``count``), ``lazy_opt[table]["mv"]`` ([2, R, D] float32
-moments), ``step`` and ``lazy_overflow`` (distinct row groups past the
-budget, cumulated; their gradient is skipped for that step).  A batch is a dict of
-tensors on the trainer's device, keyed like the reference's batch.  Only
-the flagship model's loss (``mmoe_transformer_unbias``) is ported.
+The train state is a dict: ``params``, ``model_state`` (batch norm's
+moving statistics, ``{}`` without ``is_bn``), the dense optimizer's state
+``opt`` (Adam: ``m``, ``v``, ``count``), ``lazy_opt[table]["mv"]`` ([2,
+R, D] float32 moments), ``step`` and ``lazy_overflow`` (distinct row
+groups past the budget, cumulated; their gradient is skipped for that
+step).  A batch is a dict of tensors on the trainer's device, keyed like
+the reference's batch.
 
 ``Trainer.train`` is the chief's loop over files (JAX ``Trainer.train``):
 epochs of the native batch stream, each batch packed into two pinned host
@@ -46,8 +51,8 @@ from ..metrics.streaming import (task_metrics_init, task_metrics_update,
                                  task_metrics_values)
 from ..models.zoo import build_model
 from .lazy import build_lazy_plan, collect, lazy_adam_rows, make_overlay
-from .losses import multi_task_unbias_loss, scores_from_logits
-from .optim import adam_init, adam_update, piecewise_constant
+from .losses import l2_regularization, model_loss, scores_from_logits
+from .optim import make_optimizer, piecewise_constant
 
 
 def make_input_stream(cfg: DMTConfig, path_spec: str, batch_size: int,
@@ -155,6 +160,13 @@ def _flatten(tree, out):
     return out
 
 
+def _detach(out):
+    """Model logits (nested tuples of tensors) without their graph."""
+    if isinstance(out, tuple):
+        return tuple(_detach(t) for t in out)
+    return out.detach()
+
+
 def _rebuild(tree, it):
     if isinstance(tree, dict):
         return {k: _rebuild(v, it) for k, v in tree.items()}
@@ -164,7 +176,7 @@ def _rebuild(tree, it):
 
 
 class Trainer:
-    """Trains the flagship model on one device.  The default device is
+    """Trains a model of the zoo on one device.  The default device is
     the card: without CUDA the constructor raises instead of training on
     the CPU.  Pass ``device="cpu"`` for the plain PyTorch path."""
 
@@ -174,13 +186,6 @@ class Trainer:
             raise RuntimeError(
                 f"Trainer: device {self.device} requested but CUDA is not "
                 "available; pass device='cpu' to train on the CPU")
-        if not cfg.is_unbias_model or cfg.model_type != \
-                "mmoe_transformer_unbias":
-            raise ValueError(f"Trainer: model_type {cfg.model_type!r} is "
-                             "not ported")
-        if cfg.optimizer.lower() != "adam" or cfg.wnd_wd > 1e-5:
-            raise ValueError("Trainer: only Adam without dense weight decay "
-                             "is ported")
         if cfg.grid_bf16 or os.environ.get("DMT_GRID_BF16", "0") == "1":
             raise ValueError(
                 "Trainer: grid_bf16 (or DMT_GRID_BF16=1) is not ported; it "
@@ -188,7 +193,10 @@ class Trainer:
                 "which would change the trained values")
         self.cfg = cfg
         self.model = build_model(cfg)
-        self.lazy_plan = build_lazy_plan(cfg)
+        self.optimizer = make_optimizer(cfg)
+        # mlp reads no table, whatever tables the config lists
+        self.lazy_plan = build_lazy_plan(cfg) if self.model.has_tables \
+            else ()
         self.schedule = piecewise_constant(cfg.step_boundary,
                                            cfg.learning_rate)
         self.ckpt = CheckpointManager(cfg.model_path)
@@ -197,8 +205,10 @@ class Trainer:
         self.save_seconds: dict[int, float] = {}
 
     def _dense(self, params: dict) -> dict:
-        """The params minus the lazily updated tables (what dense Adam
-        sees)."""
+        """The params minus the lazily updated tables (what the dense
+        optimizer sees)."""
+        if not self.lazy_plan:
+            return params
         lazy = {t.name for t in self.lazy_plan}
         out = dict(params)
         out["emb"] = {k: v for k, v in params["emb"].items()
@@ -206,10 +216,12 @@ class Trainer:
         return out
 
     def init_state(self, gen: torch.Generator) -> dict:
-        """Random params from ``gen`` (on the trainer's device) and zero
-        optimizer state."""
+        """Random params from ``gen`` (on the trainer's device), a fresh
+        model state and zero optimizer state."""
         params = self.model.init(gen)
-        state = {"params": params, "opt": adam_init(self._dense(params)),
+        state = {"params": params,
+                 "model_state": self.model.init_state(params),
+                 "opt": self.optimizer.init(self._dense(params)),
                  "step": torch.zeros((), dtype=torch.int64,
                                      device=self.device),
                  "lazy_overflow": torch.zeros((), dtype=torch.int64,
@@ -240,9 +252,10 @@ class Trainer:
         rows_d = {name: c.rows.detach().requires_grad_()
                   for name, c in cols.items()}
         full = dict(dense_d)
-        full["emb"] = dict(dense_d["emb"])
-        for name in cols:
-            full["emb"][name] = params["emb"][name]
+        if cols:
+            full["emb"] = dict(dense_d["emb"])
+            for name in cols:
+                full["emb"][name] = params["emb"][name]
         engine = self.model.engine
         engine.overlay = {
             name: make_overlay(c, rows_d[name],
@@ -250,9 +263,13 @@ class Trainer:
                                       if cfg.lazy_overflow_exact else None))
             for name, c in cols.items()}
         try:
-            out = self.model.apply(full, batch, train=True, gen=gen)
-            loss = multi_task_unbias_loss(cfg, out, batch["mask"],
-                                          full.get("uncertainty"))
+            out, model_state = self.model.apply(
+                full, batch, train=True, gen=gen,
+                state=state.get("model_state"), return_state=True)
+            loss = model_loss(cfg, self.model.num_tasks, out, full, batch,
+                              train=True)
+            if cfg.wnd_wd > 1e-5:   # the reference's gate
+                loss = loss + l2_regularization(cfg, full, batch)
         finally:
             engine.overlay = {}
         wrt = leaves + list(rows_d.values())
@@ -263,11 +280,12 @@ class Trainer:
         g_rows = dict(zip(rows_d, grads[len(leaves):]))
 
         with torch.no_grad():
-            new_dense, opt = adam_update(dense, g_dense, state["opt"],
-                                         self.schedule)
+            new_dense, opt = self.optimizer.update(dense, g_dense,
+                                                   state["opt"])
             count = state["step"] + 1
             new_params = dict(new_dense)
-            new_params["emb"] = dict(new_dense["emb"])
+            if cols:
+                new_params["emb"] = dict(new_dense["emb"])
             lazy_opt = {}
             for name, c in cols.items():
                 table, mv = lazy_adam_rows(
@@ -278,11 +296,10 @@ class Trainer:
             overflow = state["lazy_overflow"]
             for c in cols.values():
                 overflow = overflow + c.overflow
-            new_state = {"params": new_params, "opt": opt, "step": count,
-                         "lazy_opt": lazy_opt, "lazy_overflow": overflow}
-            logits = ((out[0][0].detach(), out[0][1].detach()),
-                      out[1].detach())
-            p_ctr, p_cvr = scores_from_logits(cfg, logits)
+            new_state = {"params": new_params, "model_state": model_state,
+                         "opt": opt, "step": count, "lazy_opt": lazy_opt,
+                         "lazy_overflow": overflow}
+            p_ctr, p_cvr = scores_from_logits(cfg, _detach(out))
             metrics = task_metrics_update(
                 metrics, mask=batch["mask"], p_ctr=p_ctr, p_cvr=p_cvr,
                 loss=loss.detach(), weights=batch["valid"])

@@ -1,11 +1,18 @@
-"""Probabilities from model logits and the flagship's training loss
-(``cikm2020_dmt_tpu/train/losses.py``), in the reference's reduction order:
+"""Probabilities from model logits, the training losses of every model
+family and the L2 regularization (``cikm2020_dmt_tpu/train/losses.py``),
+in the reference's reduction order:
 
     loss_task = sum_c mean_b (mask[b, c] * class_weight[c] * xent[b])
 
 with the ESMM-style labels derived from the one-hot class mask over the
 classes [0, 1, 2, 4, 5]: click = any of {1, 2, 4, 5}, order = {4, 5}.
-Only ``multi_task_unbias_loss`` (the flagship's) is ported."""
+
+- ``multi_task_unbias_loss``: the unbias two-head models;
+- ``single_task_unbias_loss``: ``embed_mlp_unbias``;
+- ``multi_task_loss``: multi_task, mmoe and their transformer variants,
+  with an optional per-example (propensity) weight;
+- ``single_task_loss``: mlp, embed_mlp and transformer;
+- ``model_loss`` dispatches among them as the JAX loops do."""
 
 from __future__ import annotations
 
@@ -16,6 +23,13 @@ import torch
 from ..core.config import DMTConfig
 
 KERAS_EPS = 1e-7  # keras' probability clip in sparse categorical CE
+
+
+def sigmoid_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """tf.nn.sigmoid_cross_entropy_with_logits in its stable form:
+    max(l, 0) - l * z + log1p(exp(-|l|))."""
+    return (logits.clamp(min=0.0) - logits * labels
+            + torch.log1p(torch.exp(-logits.abs())))
 
 
 def scores_from_logits(cfg: DMTConfig, logits, *, rel_only: bool = False
@@ -86,6 +100,137 @@ def _task_weight(cfg: DMTConfig, loss_clk, loss_order,
     return cfg.loss_weight[0] * loss_clk + cfg.loss_weight[1] * loss_order
 
 
+def _class_weights(cfg: DMTConfig, pairs, mask: torch.Tensor
+                   ) -> torch.Tensor:
+    return torch.tensor(cfg.weight_vector(pairs), dtype=mask.dtype,
+                        device=mask.device)
+
+
+def multi_task_loss(cfg: DMTConfig, logits, mask: torch.Tensor,
+                    uncertainty: Optional[dict] = None,
+                    sample_weight: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Two-head sigmoid-CE loss (reference logit_loss).  ``sample_weight``
+    multiplies each example's CE (the propensity weight the trainer passes
+    under ``propensity_em``)."""
+    click, order = logits
+    labels_clk, labels_order = derive_task_labels(mask)
+    xent_clk = sigmoid_xent(click.reshape(-1), labels_clk)
+    xent_ord = sigmoid_xent(order.reshape(-1), labels_order)
+    if sample_weight is not None:
+        xent_clk = xent_clk * sample_weight
+        xent_ord = xent_ord * sample_weight
+    loss_clk = weighted_class_reduce(xent_clk, mask,
+                                     _class_weights(cfg, cfg.weight_ctr, mask))
+    loss_order = weighted_class_reduce(
+        xent_ord, mask, _class_weights(cfg, cfg.weight_ecvr, mask))
+    return _task_weight(cfg, loss_clk, loss_order, uncertainty)
+
+
+def _single_target(cfg: DMTConfig, mask: torch.Tensor,
+                   labels: Optional[torch.Tensor]) -> torch.Tensor:
+    """The derived click label, or under ``single_task_raw_label`` the
+    raw label column (the reference's exact single-task target)."""
+    if cfg.single_task_raw_label and labels is not None:
+        return labels.reshape(-1).to(mask.dtype)
+    return derive_task_labels(mask)[0]
+
+
+def single_task_loss(cfg: DMTConfig, logits: torch.Tensor,
+                     mask: torch.Tensor,
+                     labels: Optional[torch.Tensor] = None,
+                     train: bool = True) -> torch.Tensor:
+    """Single-logit CTR loss: sigmoid CE against ``_single_target``,
+    weighted by ``train_weight`` in training and ``valid_weight`` in
+    eval."""
+    weights = cfg.train_weight if train else cfg.valid_weight
+    xent = sigmoid_xent(logits.reshape(-1),
+                        _single_target(cfg, mask, labels))
+    return weighted_class_reduce(xent, mask,
+                                 _class_weights(cfg, weights, mask))
+
+
+def single_task_unbias_loss(cfg: DMTConfig, logits, mask: torch.Tensor,
+                            labels: Optional[torch.Tensor] = None,
+                            train: bool = True) -> torch.Tensor:
+    """The single-head analog of ``multi_task_unbias_loss``: CE on the
+    biased probability plus, in ``ctr_rel`` mode, on the relevance-only
+    one, weighted as ``single_task_loss``."""
+    rel, bias = (t.reshape(-1) for t in logits)
+    sig = torch.sigmoid
+    if cfg.loss_unbias_method == "two_head_multiply":
+        p = sig(rel) * sig(bias)
+    else:
+        p = sig(rel + bias)
+    target = _single_target(cfg, mask, labels)
+    xent = binary_xent_from_prob(p, target)
+    if cfg.loss_ctr_rel_method == "ctr_rel":
+        xent = xent + binary_xent_from_prob(sig(rel), target)
+    weights = cfg.train_weight if train else cfg.valid_weight
+    return weighted_class_reduce(xent, mask,
+                                 _class_weights(cfg, weights, mask))
+
+
+def model_loss(cfg: DMTConfig, num_tasks: int, out, params: dict,
+               batch: dict, *, train: bool) -> torch.Tensor:
+    """The loss of a model's output (JAX ``make_loss_fn`` in training,
+    the eval step's dispatch otherwise): by unbias and task count.  Only
+    training passes the propensity weight (``cfg.propensity_em``)."""
+    uncertainty = params.get("uncertainty")
+    mask = batch["mask"]
+    if cfg.is_unbias_model and num_tasks == 2:
+        return multi_task_unbias_loss(cfg, out, mask, uncertainty)
+    if cfg.is_unbias_model:
+        return single_task_unbias_loss(cfg, out, mask, batch.get("label"),
+                                       train=train)
+    if num_tasks == 2:
+        sw = (batch["propensity_weight_mul"]
+              if train and cfg.propensity_em else None)
+        return multi_task_loss(cfg, out, mask, uncertainty, sample_weight=sw)
+    return single_task_loss(cfg, out, mask, batch.get("label"), train=train)
+
+
+def l2_regularization(cfg: DMTConfig, params: dict, batch: dict
+                      ) -> torch.Tensor:
+    """``0.5 * wnd_wd * sum(w^2)`` over every dense kernel (a ``"w"``
+    leaf), plus ``l2_emb_lambda / batch_size`` times half the squared norm
+    of each table row the batch touches, counted once per row (a presence
+    vector per table; ids outside a table's rows are dropped)."""
+    from ..data.pipeline import IDS
+
+    reg = torch.zeros((), dtype=torch.float32)
+    if cfg.wnd_wd > 0.0:
+        def dense_sq(tree):
+            if isinstance(tree, dict):
+                return sum((v.float().square().sum() if k == "w"
+                            else dense_sq(v)) for k, v in tree.items()
+                           if k == "w" or isinstance(v, (dict, list)))
+            if isinstance(tree, list):
+                return sum(dense_sq(v) for v in tree)
+            return 0.0
+
+        reg = reg + 0.5 * cfg.wnd_wd * dense_sq(params)
+    emb = params.get("emb")
+    if emb and cfg.l2_emb_lambda > 0.0:
+        touched: dict[str, torch.Tensor] = {}
+        for spec in cfg.embeddings:
+            key = spec.feature + IDS
+            if key not in batch:
+                continue
+            ids = batch[key].reshape(-1).long()
+            presence = touched.get(spec.table)
+            if presence is None:
+                presence = torch.zeros((spec.id_size,), dtype=torch.float32,
+                                       device=ids.device)
+            keep = (ids >= 0) & (ids < presence.shape[0])
+            presence = presence.index_fill(0, ids[keep], 1.0)
+            touched[spec.table] = presence
+        total = sum(0.5 * (presence * emb[name].float().square().sum(-1))
+                    .sum() for name, presence in touched.items())
+        reg = reg + total * cfg.l2_emb_lambda / cfg.batch_size
+    return reg
+
+
 def multi_task_unbias_loss(cfg: DMTConfig, logits, mask: torch.Tensor,
                            uncertainty: Optional[dict] = None
                            ) -> torch.Tensor:
@@ -105,10 +250,8 @@ def multi_task_unbias_loss(cfg: DMTConfig, logits, mask: torch.Tensor,
     if cfg.loss_ctr_rel_method == "ctr_rel":
         xent_clk = xent_clk + binary_xent_from_prob(sig(click), labels_clk)
         xent_ord = xent_ord + binary_xent_from_prob(sig(order), labels_order)
-    w_ctr = torch.tensor(cfg.weight_vector(cfg.weight_ctr), dtype=mask.dtype,
-                         device=mask.device)
-    w_ecvr = torch.tensor(cfg.weight_vector(cfg.weight_ecvr),
-                          dtype=mask.dtype, device=mask.device)
-    loss_clk = weighted_class_reduce(xent_clk, mask, w_ctr)
-    loss_order = weighted_class_reduce(xent_ord, mask, w_ecvr)
+    loss_clk = weighted_class_reduce(xent_clk, mask,
+                                     _class_weights(cfg, cfg.weight_ctr, mask))
+    loss_order = weighted_class_reduce(
+        xent_ord, mask, _class_weights(cfg, cfg.weight_ecvr, mask))
     return _task_weight(cfg, loss_clk, loss_order, uncertainty)

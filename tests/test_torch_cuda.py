@@ -921,3 +921,83 @@ def test_queue_on_card(cuda_device):
                                    atol=1e-4)
     torch.cuda.synchronize()
     assert block.fused_encode_decode.launches == 3 * scorer.n
+
+
+LATTICE = ("mlp", "embed_mlp", "embed_mlp_unbias", "multi_task", "mmoe",
+           "transformer", "multi_task_transformer", "mmoe_transformer",
+           "mmoe_transformer_unbias")
+
+
+def _lattice_cfg(model_type, is_bn=False):
+    """``conf/dmt.conf`` with ``model_type``, tables cut to 5,000 rows and
+    the tables of 5,000 rows under lazy Adam; dropout off; batch norm's
+    decay 0, so one step leaves the batch's own statistics (a fresh batch
+    norm evaluates with zero variance, rsqrt(1e-4) = 100 a layer, which
+    magnifies any rounding difference)."""
+    import dataclasses
+    from pathlib import Path
+
+    from cikm2020_dmt_torch.core.config import DMTConfig
+
+    cfg = DMTConfig.from_ini(str(Path(__file__).resolve().parent.parent
+                                 / "conf" / "dmt.conf"))
+    return dataclasses.replace(
+        cfg, model_type=model_type, is_bn=is_bn, bn_decay=0.0,
+        dedup_rows_threshold=5000,
+        dropout_rate_bias=(0.0,) * len(cfg.dropout_rate_bias),
+        transformer=dataclasses.replace(cfg.transformer, dropout_rate=0.0),
+        embeddings=tuple(dataclasses.replace(e, id_size=min(e.id_size, 5000))
+                         for e in cfg.embeddings))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_type,is_bn", [(m, False) for m in LATTICE]
+                         + [("mmoe_transformer", True), ("mlp", True)])
+def test_lattice_model_on_card(model_type, is_bn, cuda_device):
+    """Each lattice model on the card: one training step with one block
+    forward and backward per sequence group and the lazy update's three
+    launches per table of 5,000 rows (Sku, Cid3, Brand, Shopid after the
+    cut) or none (mlp), a finite loss and, where ``is_bn``, the moving
+    statistics moved; then its eval forward (the bias head too) on that
+    state within 1e-4 of the CPU forward, one block-forward launch per
+    group."""
+    import chip_smoke as cs
+    from cikm2020_dmt_torch.metrics.streaming import task_metrics_init
+    from cikm2020_dmt_torch.nn.layers import tree_map
+    from cikm2020_dmt_torch.train.loop import Trainer
+
+    cfg = _lattice_cfg(model_type, is_bn)
+    tr = Trainer(cfg, device=cuda_device)
+    state = tr.init_state(torch.Generator(device=cuda_device).manual_seed(0))
+    groups = len(cfg.attention_pairs) if "transformer" in model_type else 0
+    lazy = len(tr.lazy_plan)
+    assert lazy == (0 if model_type == "mlp" else 4)
+    batch = cs.synthetic_batch(cfg, 256, 1, cuda_device)
+    cs.reset_counts()
+    state, _, loss = tr.train_step(state, task_metrics_init(cuda_device),
+                                   batch, torch.Generator(device=cuda_device))
+    torch.cuda.synchronize()
+    assert cs.read_counts() == {
+        "fused_block_fwd": groups, "fused_block_bwd": groups,
+        "attention_fwd": 0, "attention_bwd": 0, "sorted_segsum": lazy,
+        "update_rows": lazy, "update_rows_3d": lazy}
+    assert torch.isfinite(loss)
+    flat = torch.utils._pytree.tree_leaves
+    moving = flat(state["model_state"])
+    assert bool(moving) == is_bn
+    assert all(float(t.abs().max()) > 0 for t in moving[::2])
+
+    batch = cs.synthetic_batch(cfg, 256, 2, cuda_device)
+    cs.reset_counts()
+    out = tr.model.apply(state["params"], batch, is_predict=False,
+                         state=state["model_state"])
+    torch.cuda.synchronize()
+    assert cs.read_counts()["fused_block_fwd"] == groups
+    cpu = tr.model.apply(tree_map(lambda t: t.cpu(), state["params"]),
+                         {k: v.cpu() for k, v in batch.items()},
+                         is_predict=False,
+                         state=tree_map(lambda t: t.cpu(),
+                                        state["model_state"]))
+    for a, b in zip(flat(out), flat(cpu)):
+        assert a.device.type == cuda_device.type and a.shape == b.shape
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)

@@ -136,7 +136,7 @@ def test_run_eval_matches_jax(models):
 
 
 def test_eval_rejects_unported_models():
-    cfg = port_cfg(g._demo_config(**SMALL, model_type="mmoe"))
+    cfg = port_cfg(g._demo_config(**SMALL, model_type="din"))
     with pytest.raises(ValueError, match="not ported"):
         make_eval_step(cfg, None)
 

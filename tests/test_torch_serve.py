@@ -188,7 +188,7 @@ def test_norm_constants_match_jax():
 
 
 def test_build_model_rejects_unported_types():
-    cfg = port_cfg(_demo_config(**SMALL, model_type="mmoe"))
+    cfg = port_cfg(_demo_config(**SMALL, model_type="din"))
     with pytest.raises(ValueError, match="not ported"):
         t_build(cfg)
 
