@@ -100,21 +100,28 @@ latency through the preprocessor, and ``ScorerQueue`` under 4 threads;
 exactly 3 block-forward launches per eval batch and per forward of a
 request or a queue's group, and nothing else.
 
-The rest of the model lattice (``zoo_phase``, after ``dmt_2block``): eight
-paths at full width with 1 + 1 blocks of (80, 320, 4), the four demo
-configs as written (``conf/mlp_demo.conf``, ``embed_mlp_demo.conf``,
-``transformer_demo.conf``, ``mmoe_transformer_demo.conf``) and
-``multi_task``, ``mmoe``, ``multi_task_transformer`` and
-``embed_mlp_unbias`` on ``conf/dmt.conf``.  Each path: one step at batch
-256 against the CPU (``card_vs_cpu_step``, batch norm's moving statistics
-too), 5 timed steps at batch 2048 with exactly ``EXPECTED_PER_STEP[path]``
-launches a step, ``run_eval`` over 2 batches of 4096 and 25 requests of
-300 through ``Scorer``, one block forward per sequence group a batch or a
-request and nothing else.  Batch norm once (``mmoe_transformer_demo`` with
-``is_bn``: the card-vs-CPU step, and a float32 bundle scoring as a
-``Scorer`` over its checkpoint) and the dense optimizers sgd, adadelta,
-adagrad, rmsprop and ftrl once each (one step of ``embed_mlp_demo``
-against the CPU, no kernel launched).
+The rest of the model lattice and the paper baselines (``zoo_phase``,
+after ``dmt_2block``): thirteen paths at full width with 1 + 1 blocks of
+(80, 320, 4), the four demo configs as written (``conf/mlp_demo.conf``,
+``embed_mlp_demo.conf``, ``transformer_demo.conf``,
+``mmoe_transformer_demo.conf``), and ``multi_task``, ``mmoe``,
+``multi_task_transformer``, ``embed_mlp_unbias`` and the baselines
+``lr``, ``wnd``, ``dcn``, ``din`` and ``dien`` on ``conf/dmt.conf``.  Each
+path: one step at batch 256 against the CPU (``card_vs_cpu_step``, batch
+norm's moving statistics too), 5 timed steps at batch 2048 with exactly
+``EXPECTED_PER_STEP[path]`` launches a step, ``run_eval`` over 2 batches
+of 4096 and 25 requests of 300 through ``Scorer``, one block forward per
+sequence group a batch or a request and nothing else.  The baselines run
+no block: each training step launches exactly one segment sum, one
+``update_rows`` and one ``update_rows_3d`` (Sku under lazy Adam), and
+their eval and serving launch nothing.  Batch norm once
+(``mmoe_transformer_demo`` with ``is_bn``: the card-vs-CPU step, and a
+float32 bundle scoring as a ``Scorer`` over its checkpoint); ``din`` once
+more as a user runs it (``din_files_check``: shards, ``cli.train`` with
+the lazy update's three launches a step, ``cli.export`` of a float32 and
+an int8 bundle, ``load_scorer`` of each scoring the three requests); and
+the dense optimizers sgd, adadelta, adagrad, rmsprop and ftrl once each
+(one step of ``embed_mlp_demo`` against the CPU, no kernel launched).
 
 The segment sum (``segsum_phase``) is also launched twice on each of its
 inputs: the two results must be the same bits.
@@ -250,14 +257,21 @@ def make_requests(cfg, n_candidates: int, lens_per_request, seed: int):
     return requests
 
 
-def check_scores(out: dict, n: int) -> None:
+def check_scores(out: dict, n: int, closed: bool = False) -> None:
+    """Each score of the request finite and a probability in (0, 1), or
+    with ``closed`` in [0, 1]: a paper baseline trained a few steps on
+    ``conf/dmt.conf``'s class weights (400 for an order) reaches logits
+    past 16, where float32's sigmoid is 1 (the reference's arithmetic;
+    such paths are also held to the CPU's Scores)."""
     for k in ("Scores", "click_Scores", "order_Scores"):
         v = out[k]
         if v.shape != (n,) or not np.isfinite(v).all():
             raise AssertionError(f"{k}: shape {v.shape}, finite "
                                  f"{bool(np.isfinite(v).all())}")
-        if not ((v > 0) & (v < 1)).all():
-            raise AssertionError(f"{k}: probabilities outside (0, 1)")
+        inside = ((v >= 0) & (v <= 1)) if closed else ((v > 0) & (v < 1))
+        if not inside.all():
+            raise AssertionError(f"{k}: probabilities outside "
+                                 f"{'[0, 1]' if closed else '(0, 1)'}")
 
 
 @functools.cache
@@ -2817,14 +2831,17 @@ def _time_attention_bwd(att, sdpa, B, Tq, Tk, part, per_step, q, k, v, qm,
 
 
 # ---------------------------------------------------------------------------
-# The rest of the model lattice (mlp ... mmoe_transformer): eight paths at
-# full width, 1 + 1 blocks of (80, 320, 4)
+# The rest of the model lattice (mlp ... mmoe_transformer) and the paper
+# baselines (lr, wnd, dcn, din, dien): thirteen paths at full width, 1 + 1
+# blocks of (80, 320, 4)
 # ---------------------------------------------------------------------------
 
 _CONF_DIR = os.path.dirname(CONF)
 # (path, conf file, model_type replacing the file's): the four demo
-# configurations as written, and four types that no conf file configures
-# on conf/dmt.conf (as the JAX package's tests build them)
+# configurations as written, and four lattice types and the five paper
+# baselines, which no conf file configures, on conf/dmt.conf (as the JAX
+# package's tests build them)
+BASELINES = ("lr", "wnd", "dcn", "din", "dien")
 ZOO_PATHS = (
     ("mlp_demo", "mlp_demo.conf", None),
     ("embed_mlp_demo", "embed_mlp_demo.conf", None),
@@ -2834,11 +2851,11 @@ ZOO_PATHS = (
     ("mmoe", "dmt.conf", "mmoe"),
     ("multi_task_transformer", "dmt.conf", "multi_task_transformer"),
     ("embed_mlp_unbias", "dmt.conf", "embed_mlp_unbias"),
-)
+) + tuple((name, "dmt.conf", name) for name in BASELINES)
 # launches per training step: the fused block forward and backward once
 # per sequence group, the lazy update's three where a table has at least
 # dedup_rows_threshold (1,000,000) rows (Sku in every configuration with
-# tables); mlp has no table and runs no kernel
+# tables); mlp has no table and runs no kernel; the baselines run no block
 EXPECTED_PER_STEP.update({
     "mlp_demo": {},
     "embed_mlp_demo": {**LAZY_PER_STEP},
@@ -2851,7 +2868,9 @@ EXPECTED_PER_STEP.update({
     "multi_task_transformer": {"fused_block_fwd": 3, "fused_block_bwd": 3,
                                **LAZY_PER_STEP},
     "embed_mlp_unbias": {**LAZY_PER_STEP},
+    **{name: {**LAZY_PER_STEP} for name in BASELINES},
 })
+DIN_FILE_STEPS = 2          # cli.train steps of din_files_check, one save
 ZOO_STEPS = 5               # timed training steps at TRAIN_BATCH
 ZOO_EVAL = (2, 4096)        # eval batches and their size
 ZOO_REQUESTS = (5, 25)      # serving warm-ups and timed requests
@@ -2886,9 +2905,13 @@ def zoo_path(name: str, cfg, dev) -> dict:
     launches a step, (c) ``run_eval`` over ``ZOO_EVAL`` batches, one block
     forward per sequence group and batch, (d) ``Scorer`` latency over
     ``ZOO_REQUESTS`` requests of 300, one block forward per group and
-    request.  Returns the path's numbers and its counts."""
+    request, and the three requests' Scores within ``SCORES_TOL`` of a
+    ``Scorer`` on the CPU over the same state (a paper baseline's in
+    [0, 1]: ``check_scores``).  Returns the path's numbers and its
+    counts."""
     from cikm2020_dmt_torch.data.pipeline import Batch
     from cikm2020_dmt_torch.metrics.streaming import task_metrics_init
+    from cikm2020_dmt_torch.nn.layers import tree_map
     from cikm2020_dmt_torch.serve.export import Scorer
     from cikm2020_dmt_torch.train import evaluate
     from cikm2020_dmt_torch.train.loop import Trainer
@@ -2947,9 +2970,11 @@ def zoo_path(name: str, cfg, dev) -> dict:
     scorer = Scorer(cfg, state["params"], scale, const_vec,
                     model_state=state["model_state"])
     requests = make_requests(cfg, CANDIDATES, REQUEST_LENS, SEED)
+    closed = cfg.model_type in BASELINES
     warm, timed = ZOO_REQUESTS
     for i in range(warm):
-        check_scores(scorer(requests[i % len(requests)]), CANDIDATES)
+        check_scores(scorer(requests[i % len(requests)]), CANDIDATES,
+                     closed)
     torch.cuda.synchronize()
     reset_counts()
     lat = []
@@ -2960,7 +2985,19 @@ def zoo_path(name: str, cfg, dev) -> dict:
     serve_counts = read_counts()
     _expect(serve_counts, {"fused_block_fwd": groups}, timed,
             f"{name} serving")
-    check_scores(out, CANDIDATES)
+    check_scores(out, CANDIDATES, closed)
+    # the requests on the card against the same Scorer on the CPU
+    cpu = Scorer(cfg, tree_map(lambda t: t.cpu(), state["params"]), scale,
+                 const_vec, device="cpu",
+                 model_state=tree_map(lambda t: t.cpu(),
+                                      state["model_state"]))
+    serve_err = max(float(np.abs(a[k] - b[k]).max())
+                    for a, b in ((scorer(q), cpu(q)) for q in requests)
+                    for k in b)
+    if not serve_err <= SCORES_TOL:
+        raise AssertionError(f"{name} serving: card vs CPU Scores "
+                             f"{serve_err} (tol {SCORES_TOL})")
+    del cpu
     p50 = statistics.median(lat)
     p90 = sorted(lat)[int(0.9 * len(lat)) - 1]
     rec = {"model_type": cfg.model_type, "step_ms": step_ms,
@@ -2969,7 +3006,7 @@ def zoo_path(name: str, cfg, dev) -> dict:
            "losses": [losses[0], losses[-1]],
            "eval_ms_per_batch": eval_s * 1e3 / n_eval,
            "eval_examples_per_s": n_eval * eval_bs / eval_s,
-           "p50_ms": p50, "p90_ms": p90,
+           "p50_ms": p50, "p90_ms": p90, "serve_card_vs_cpu": serve_err,
            "card_vs_cpu": {k: v for k, v in check.items()
                            if k != "seconds"},
            "counts": {k: train_counts[k] + eval_counts[k] + serve_counts[k]
@@ -2981,8 +3018,8 @@ def zoo_path(name: str, cfg, dev) -> dict:
         f"losses {losses[0]:.4f}..{losses[-1]:.4f}; eval "
         f"{rec['eval_ms_per_batch']:.3f} ms per batch of {eval_bs}, "
         f"{rec['eval_examples_per_s']:.1f} examples/s; request p50 "
-        f"{p50:.3f} ms, p90 {p90:.3f} ms over {timed} of {CANDIDATES}; "
-        f"launches train {json.dumps(train_counts)}, eval "
+        f"{p50:.3f} ms, p90 {p90:.3f} ms over {timed} of {CANDIDATES}, "
+        f"card vs CPU Scores {serve_err:.3e}; launches train {json.dumps(train_counts)}, eval "
         f"{eval_counts['fused_block_fwd']}, serve "
         f"{serve_counts['fused_block_fwd']} block forwards; "
         f"{rec['seconds']:.1f}s")
@@ -3052,6 +3089,111 @@ def zoo_bn_check(dev, d: str) -> dict:
     return {"card_vs_cpu": {k: v for k, v in check.items()
                             if k != "seconds"},
             "bundle_scores_err": err, "moving_statistics": n_state}
+
+
+def din_files_check(dev, d: str) -> dict:
+    """``din`` on ``conf/dmt.conf`` as a user runs it, at full width:
+    ``DIN_FILE_STEPS`` shards of ``TRAIN_BATCH`` examples written with
+    ``write_shards``, ``cli.train`` over them with one save at the last
+    step (exactly the lazy update's three launches a step, finite
+    losses), then ``cli.export`` of a float32 bundle and of an int8 one
+    (``export_int8_rows`` ``INT8_ROWS`` in the config's ``[export_model]``:
+    Sku), each read back by ``load_scorer`` and scoring the three
+    requests: float32 within ``SCORES_TOL`` of a ``Scorer`` over the
+    restored checkpoint, int8 within ``INT8_TOL`` of float32; export and
+    serving launch no kernel.  Returns the numbers and the training
+    launches."""
+    from cikm2020_dmt_torch.cli import export as cli_export
+    from cikm2020_dmt_torch.cli import train as cli_train
+    from cikm2020_dmt_torch.core.checkpoint import CheckpointManager
+    from cikm2020_dmt_torch.core.config import DMTConfig
+    from cikm2020_dmt_torch.serve.export import Scorer, load_scorer
+
+    t_all = time.perf_counter()
+    steps = DIN_FILE_STEPS
+    cfg = dataclasses.replace(zoo_config("dmt.conf", "din"),
+                              validate_step=steps, batch_size=TRAIN_BATCH)
+    mean, std, (scale, const_vec) = _norm_constants(cfg)
+    stats = {}
+    for stat, v in (("mean", mean), ("std", std)):
+        stats[stat] = os.path.join(d, stat)
+        with open(stats[stat], "w") as f:
+            f.write("\t".join(repr(float(x)) for x in v) + "\n")
+    data = os.path.join(d, "data")
+    os.makedirs(data)
+    write_shards(cfg, data, steps, TRAIN_BATCH, SEED + 600)
+    confs = {}
+    for kind, rows in (("f32", 0), ("int8", INT8_ROWS)):
+        # two copies of one config file (one model tag), as a user keeps
+        confs[kind] = os.path.join(d, kind, "din.conf")
+        os.makedirs(os.path.dirname(confs[kind]))
+        write_conf(dataclasses.replace(cfg, export_int8_rows=rows),
+                   confs[kind], data + "/", os.path.join(d, "out"),
+                   train_data_mean_path=stats["mean"],
+                   train_data_std_path=stats["std"])
+    reset_counts()
+    t0 = time.perf_counter()
+    tr = cli_train.main(["--conf_file", confs["f32"], "--device", str(dev),
+                         "--max_steps", str(steps)])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_counts = read_counts()
+    _expect(train_counts, LAZY_PER_STEP, steps, "din cli.train")
+    ecfg = DMTConfig.from_ini(confs["f32"])
+    with open(os.path.join(ecfg.summary_path, "train.jsonl")) as f:
+        summary = [json.loads(line) for line in f]
+    if tr.last_step != steps or [x["step"] for x in summary] != [steps] \
+            or not np.isfinite(summary[0]["loss"]):
+        raise AssertionError(f"din cli.train: last step {tr.last_step}, "
+                             f"summary {summary}")
+    del tr
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    scorers, export_s = {}, {}
+    for kind, conf in confs.items():
+        t0 = time.perf_counter()
+        bundle = cli_export.main(["--conf_file", conf, "--model_ckpt",
+                                  f"model.ckpt-{steps}"])
+        export_s[kind] = time.perf_counter() - t0
+        with open(os.path.join(bundle, "descriptor.json")) as f:
+            int8 = json.load(f)["int8_tables"]
+        if int8 != [] if kind == "f32" else "Sku" not in int8:
+            raise AssertionError(f"din {kind} bundle: int8 tables {int8}")
+        scorers[kind] = load_scorer(DMTConfig.from_ini(conf), bundle,
+                                    device=dev)
+    restored = CheckpointManager(ecfg.model_path).restore(steps, dev)
+    direct = Scorer(ecfg, restored["params"], scale, const_vec,
+                    model_state=restored["model_state"])
+    del restored
+    requests = make_requests(ecfg, CANDIDATES, REQUEST_LENS, SEED)
+    want = [direct(q) for q in requests]
+    scores = {kind: [s(q) for q in requests] for kind, s in scorers.items()}
+    torch.cuda.synchronize()
+    _expect(read_counts(), {}, 1, "din export and serving")
+    errs = {}
+    for kind, outs in scores.items():
+        base = want if kind == "f32" else scores["f32"]
+        for o in outs:
+            check_scores(o, CANDIDATES, closed=True)
+        errs[kind] = max(float(np.abs(o[k] - b[k]).max())
+                         for o, b in zip(outs, base) for k in b)
+    log(f"zoo din from files: cli.train {steps} steps of {TRAIN_BATCH} in "
+        f"{train_s:.2f}s (loss {summary[0]['loss']:.4f}, launches "
+        f"{json.dumps(train_counts)}); cli.export float32 "
+        f"{export_s['f32']:.2f}s, int8 {export_s['int8']:.2f}s; Scores "
+        f"float32 bundle vs the checkpoint's Scorer {errs['f32']:.3e} (tol "
+        f"{SCORES_TOL}), int8 vs float32 {errs['int8']:.3e} (tol "
+        f"{INT8_TOL}); {time.perf_counter() - t_all:.1f}s")
+    if not (errs["f32"] <= SCORES_TOL and errs["int8"] <= INT8_TOL):
+        raise AssertionError(f"din bundles: float32 vs the checkpoint "
+                             f"{errs['f32']}, int8 vs float32 "
+                             f"{errs['int8']}")
+    del scorers, direct
+    torch.cuda.empty_cache()
+    return {"train_s": train_s, "export_s": export_s, "scores_err": errs,
+            "loss": summary[0]["loss"], "counts": train_counts,
+            "seconds": time.perf_counter() - t_all}
 
 
 def zoo_optimizer_check(opt: str, dev) -> dict:
@@ -3129,24 +3271,29 @@ def zoo_optimizer_check(opt: str, dev) -> dict:
 
 
 def zoo_phase(dev) -> dict:
-    """The eight lattice paths (``zoo_path``), batch norm once
-    (``zoo_bn_check``) and the five dense optimizers once each
-    (``zoo_optimizer_check``).  Returns the numbers and the launch counts
-    of the paths' counted runs, summed."""
+    """The thirteen paths (``zoo_path``), batch norm once
+    (``zoo_bn_check``), ``din`` from files through ``cli.train`` and
+    ``cli.export`` (``din_files_check``) and the five dense optimizers
+    once each (``zoo_optimizer_check``).  Returns the numbers and the
+    launch counts of the paths' counted runs and of ``din``'s
+    ``cli.train``, summed."""
     t0 = time.perf_counter()
     paths = {name: zoo_path(name, zoo_config(conf, mt), dev)
              for name, conf, mt in ZOO_PATHS}
     with tempfile.TemporaryDirectory() as d:
         bn = zoo_bn_check(dev, d)
+    with tempfile.TemporaryDirectory() as d:
+        din_files = din_files_check(dev, d)
     opts = {opt: zoo_optimizer_check(opt, dev) for opt in ZOO_OPTIMIZERS}
     counts = {k: sum(p["counts"][k] for p in paths.values())
+              + din_files["counts"][k]
               for k in next(iter(paths.values()))["counts"]}
     wall = time.perf_counter() - t0
-    log(f"zoo phase: {len(paths)} paths, batch norm, "
+    log(f"zoo phase: {len(paths)} paths, batch norm, din from files, "
         f"{len(opts)} optimizers; launches {json.dumps(counts)}; wall "
         f"{wall:.1f}s")
-    return {"paths": paths, "batch_norm": bn, "optimizers": opts,
-            "counts": counts, "wall_s": wall}
+    return {"paths": paths, "batch_norm": bn, "din_files": din_files,
+            "optimizers": opts, "counts": counts, "wall_s": wall}
 
 
 def main() -> int:

@@ -56,15 +56,20 @@ def combiner_dim(cfg: DMTConfig, skip_seq: bool = False) -> int:
 def embedding_combiner(emb: Params, batch: dict, cfg: DMTConfig, *,
                        skip_seq: bool = False,
                        engine: EmbeddingEngine = DENSE_ENGINE,
-                       seq_cache: Optional[dict] = None) -> torch.Tensor:
-    """[dense features | mean-pooled embedding per spec | sim crosses].
+                       seq_cache: Optional[dict] = None,
+                       combiner: str = "mean",
+                       wts_override: Optional[dict] = None) -> torch.Tensor:
+    """[dense features | pooled embedding per spec | sim crosses].
 
     Features found in ``seq_cache`` (the raw grids ``sequence_interest``
-    gathered) pool from the cached grid instead of gathering again.
-    ``skip_seq`` leaves out the attention-pairs' user (sequence) features,
-    as the single-sequence ``transformer`` model does; the item features
-    still pool.  (The reference's ``combiner`` and ``wts_override`` serve
-    only DIN, a paper baseline that is not ported yet.)"""
+    or DIN/DIEN gathered) pool from the cached grid instead of gathering
+    again.  ``skip_seq`` leaves out the attention-pairs' user (sequence)
+    features, as the single-sequence ``transformer`` model does; the item
+    features still pool.  ``combiner`` ("mean" or "sum") applies to every
+    pooled feature; ``wts_override`` (feature -> [B, L] weights) replaces
+    a feature's own weights, padded slots still dropped by the presence
+    mask: DIN pools with "sum" and its raw attention scores as the
+    attention-pair user features' weights."""
     parts = []
     if cfg.is_use_feature:
         parts.append(batch["features"])
@@ -78,13 +83,18 @@ def embedding_combiner(emb: Params, batch: dict, cfg: DMTConfig, *,
         ids = batch[spec.feature + IDS]
         if spec.feature in ts_feats:
             ids = ts_bucketize(ids, spec.id_size)
-        wts = feature_wts(batch, spec.feature, ids)
+        if wts_override and spec.feature in wts_override:
+            wts = wts_override[spec.feature]
+        else:
+            wts = feature_wts(batch, spec.feature, ids)
         lens = batch[spec.feature + LEN]
         if seq_cache is not None and spec.feature in seq_cache:
-            pooled = pooled_from_grid(seq_cache[spec.feature], wts, lens)
+            pooled = pooled_from_grid(seq_cache[spec.feature], wts, lens,
+                                      combiner)
         else:
             pooled = engine.pooled(spec.table, emb[spec.table], ids, wts,
-                                   lens, feature=spec.feature)
+                                   lens, feature=spec.feature,
+                                   combiner=combiner)
         if spec.feature in sim_wanted:
             sim_pool[spec.feature] = pooled
         parts.append(pooled)
@@ -141,6 +151,31 @@ def zero_pad_rows(ids: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
                        torch.zeros((), dtype=emb.dtype, device=emb.device))
 
 
+def group_embeddings(emb: Params, batch: dict, cfg: DMTConfig, gi: int,
+                     engine: EmbeddingEngine, cache: dict
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(seq [B, L, D], target [B, D], mask [B, L]) of behavior group
+    ``gi``: the concat of its user features' rows and of its single-id item
+    features' rows, zero-padded where ``cfg.zero_pad``, and the presence
+    mask of its first user feature.  Each lookup names its feature (the
+    lazy overlay slices by feature), and ``cache`` collects the raw (not
+    zero-padded) grids by feature for the pooled combiner to reuse."""
+    spec_of = {s.feature: s for s in cfg.embeddings}
+    group = cfg.attention_pairs[gi]
+    first_user = group[0][0]
+    wts = feature_wts(batch, first_user, batch[first_user + IDS])
+    mask = presence_mask(wts, batch[first_user + LEN])
+    seq_parts, tar_parts = [], []
+    for user_feat, item_feat in group:
+        for feat, parts in ((user_feat, seq_parts), (item_feat, tar_parts)):
+            spec, ids = spec_of[feat], batch[feat + IDS]
+            raw = engine.seq(spec.table, emb[spec.table], ids, feature=feat)
+            cache[feat] = raw
+            parts.append(zero_pad_rows(ids, raw) if cfg.zero_pad else raw)
+    return (torch.cat(seq_parts, dim=-1),
+            torch.cat([t[:, 0, :] for t in tar_parts], dim=-1), mask)
+
+
 def sequence_interest(params: Params, emb: Params, batch: dict,
                       cfg: DMTConfig, *,
                       engine: EmbeddingEngine = DENSE_ENGINE,
@@ -155,28 +190,9 @@ def sequence_interest(params: Params, emb: Params, batch: dict,
     tc = cfg.transformer
     states = []
     cache: dict[str, torch.Tensor] = {}
-    for gi, group in enumerate(cfg.attention_pairs):
-        first_user = group[0][0]
-        wts = feature_wts(batch, first_user, batch[first_user + IDS])
-        mask = presence_mask(wts, batch[first_user + LEN])
-
-        seq_parts, tar_parts = [], []
-        for user_feat, item_feat in group:
-            uspec, ispec = spec_of[user_feat], spec_of[item_feat]
-            uids = batch[user_feat + IDS]
-            raw_u = engine.seq(uspec.table, emb[uspec.table], uids,
-                               feature=user_feat)
-            cache[user_feat] = raw_u
-            seq_parts.append(zero_pad_rows(uids, raw_u) if cfg.zero_pad
-                             else raw_u)
-            iids = batch[item_feat + IDS]
-            raw_i = engine.seq(ispec.table, emb[ispec.table], iids,
-                               feature=item_feat)
-            cache[item_feat] = raw_i
-            tar = zero_pad_rows(iids, raw_i) if cfg.zero_pad else raw_i
-            tar_parts.append(tar[:, 0, :])  # single-id item feature
-        seq_emb = torch.cat(seq_parts, dim=-1)
-        tar_emb = torch.cat(tar_parts, dim=-1)
+    for gi in range(len(cfg.attention_pairs)):
+        seq_emb, tar_emb, mask = group_embeddings(emb, batch, cfg, gi,
+                                                  engine, cache)
         if dtype is not None:
             seq_emb, tar_emb = seq_emb.to(dtype), tar_emb.to(dtype)
 

@@ -1,5 +1,6 @@
 """Model zoo: the DMT composition lattice
-(``cikm2020_dmt_tpu/models/zoo.py``).
+(``cikm2020_dmt_tpu/models/zoo.py``) and the registry, which also holds
+the paper baselines of ``models/baselines.py`` (lr, wnd, dcn, din, dien).
 
     mlp ⊂ embed_mlp ⊂ {multi_task, mmoe} ⊂ +transformer ⊂ +unbias
 
@@ -32,87 +33,13 @@ import torch
 
 from ..core.config import DMTConfig
 from ..data.schema import FeatureSchema
-from ..nn.embedding import collection_init
-from ..nn.layers import Params, State, bn_state, mlp_apply, mlp_init
-from ..parallel.embedding_shard import EmbeddingEngine
+from ..nn.layers import State, mlp_init
+from .base import BaseModel
+from .baselines import DCN, DIEN, DIN, LR, WideAndDeep
 from .components import (bias_net_apply, bias_net_init, combiner_dim,
                          embedding_combiner, interest_dim, mmoe_apply,
                          mmoe_init, sequence_interest, sequences_init,
                          tower_apply, tower_init)
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-class BaseModel:
-    name = "base"
-    num_tasks = 1
-    has_gates = False   # the MMoE family: ``apply(..., return_gates=True)``
-    has_tables = True   # params["emb"]: every model but mlp
-
-    def __init__(self, cfg: DMTConfig, schema: Optional[FeatureSchema] = None):
-        self.cfg = cfg
-        self.schema = schema or FeatureSchema.from_config(cfg)
-        self.dtype = _DTYPES[cfg.param_dtype]
-        self.compute_dtype = _DTYPES[cfg.compute_dtype]
-        self.engine = EmbeddingEngine()
-
-    def _emb_init(self, gen: torch.Generator) -> Params:
-        return collection_init(gen, self.cfg.embeddings, self.dtype,
-                               self.cfg.table_bf16_threshold)
-
-    def _uncertainty(self, gen: torch.Generator, params: Params) -> Params:
-        """Kendall uncertainty loss-weight variables."""
-        if self.cfg.loss_weight_method == "uncertainty":
-            params["uncertainty"] = {
-                "click_weight": torch.zeros((1,), device=gen.device),
-                "order_weight": torch.zeros((1,), device=gen.device)}
-        return params
-
-    def _mlp(self, params, state, x, keep_probs, train, gen):
-        cfg = self.cfg
-        return mlp_apply(params, state, x, keep_probs=keep_probs,
-                         train=train, is_bn=cfg.is_bn,
-                         is_dropout=cfg.is_dropout, bn_decay=cfg.bn_decay,
-                         gen=gen)
-
-    def init(self, gen: torch.Generator) -> Params:
-        """Random params on ``gen``'s device, the reference's tree."""
-        raise NotImplementedError
-
-    def init_state(self, params: Params) -> State:
-        """The model state of a fresh model: zero moving statistics."""
-        return bn_state(params)
-
-    def forward(self, params: Params, state: State, batch: dict, *,
-                train: bool, gen: Optional[torch.Generator],
-                is_predict: bool):
-        """(logits, new state)."""
-        raise NotImplementedError
-
-    def apply(self, params: Params, batch: dict, *, train: bool = False,
-              gen: Optional[torch.Generator] = None,
-              is_predict: Optional[bool] = None,
-              state: Optional[State] = None, return_state: bool = False,
-              return_gates: bool = False):
-        """The logits of the contract above; with ``return_state``,
-        ``(logits, new state)``.  ``state`` defaults to a fresh model's.
-        With ``return_gates`` (the MMoE family only; others raise
-        ``ValueError``) the logits come as ``(logits, gates)``: the
-        per-task expert-gate softmax [T, B, E] in float32 from this same
-        forward (JAX ``MMoE.gate_values`` recomputes the trunk for it)."""
-        kw = {}
-        if return_gates:
-            if not self.has_gates:
-                raise ValueError(f"model_type {self.name!r} has no expert "
-                                 "gates (only the MMoE family has)")
-            kw["return_gates"] = True
-        if not state:
-            state = self.init_state(params) if self.cfg.is_bn else {}
-        if is_predict is None:
-            is_predict = not train
-        out, new_state = self.forward(params, state, batch, train=train,
-                                      gen=gen, is_predict=is_predict, **kw)
-        return (out, new_state) if return_state else out
 
 
 class MLP(BaseModel):
@@ -351,12 +278,9 @@ class MMoETransformerUnbias(MMoETransformer):
 MODEL_REGISTRY = {
     m.name: m for m in (
         MLP, EmbedMLP, EmbedMLPUnbias, MultiTask, MMoE, Transformer,
-        MultiTaskTransformer, MMoETransformer, MMoETransformerUnbias)
+        MultiTaskTransformer, MMoETransformer, MMoETransformerUnbias,
+        LR, WideAndDeep, DCN, DIN, DIEN)
 }
-
-# the paper baselines of the JAX package's models/baselines.py, which the
-# port does not carry yet
-BASELINE_MODEL_TYPES = ("lr", "wnd", "dcn", "din", "dien")
 
 # reference dispatch names whose model sources were never committed; the
 # JAX package does not build them either
@@ -365,13 +289,8 @@ UNRECONSTRUCTIBLE_MODEL_TYPES = (
 
 
 def model_class(model_type: str) -> type:
-    """The registry's class of ``model_type``; a paper baseline or an
-    unknown name raises ``ValueError``."""
-    if model_type in BASELINE_MODEL_TYPES:
-        raise ValueError(
-            f"model_type {model_type!r} is not ported: the paper baselines "
-            f"{', '.join(BASELINE_MODEL_TYPES)} are the next part of the "
-            f"port; available: {sorted(MODEL_REGISTRY)}")
+    """The registry's class of ``model_type``; an unknown name raises
+    ``ValueError``."""
     try:
         return MODEL_REGISTRY[model_type]
     except KeyError:

@@ -9,7 +9,7 @@ Semantics follow ``cikm2020_dmt_tpu/nn/embedding.py``:
 
 - lookups clamp out-of-range ids into ``[0, R-1]`` (``mode="clip"``);
 - mean pooling divides by the sum of the *present* weights, and a row with
-  no present ids pools to zeros;
+  no present ids pools to zeros; sum pooling (DIN's) does not divide;
 - timestamps bucket as ``clip(floor(log2(ts)) + 1, 0, rows - 1)`` with the
   log taken in float32, bucket 0 for ts <= 0.
 """
@@ -77,14 +77,16 @@ def presence_mask(wts: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
 
 
 def pooled_from_grid(grid: torch.Tensor, wts: torch.Tensor,
-                     lens: torch.Tensor) -> torch.Tensor:
-    """Weighted mean of an already-gathered grid ``[B, L, D] -> [B, D]``,
-    computed in the grid's dtype like the reference:
-    ``sum_j w_j * E[id_j] / sum_j w_j`` over the present ids, zeros where
-    no id is present.  (The reference's "sum" combiner serves only the DIN
-    baseline, which is not ported.)"""
+                     lens: torch.Tensor, combiner: str = "mean"
+                     ) -> torch.Tensor:
+    """Weighted pool of an already-gathered grid ``[B, L, D] -> [B, D]``
+    over the present ids, computed in the grid's dtype like the reference:
+    ``"sum"`` is ``sum_j w_j * E[id_j]``, ``"mean"`` divides that by
+    ``sum_j w_j`` and gives zeros where no id is present."""
     w = wts * presence_mask(wts, lens)
     weighted = torch.einsum("bl,bld->bd", w.to(grid.dtype), grid)
+    if combiner == "sum":
+        return weighted
     denom = w.sum(dim=-1, keepdim=True).to(grid.dtype)
     return torch.where(denom > 0, weighted / denom.clamp(min=1e-12),
                        torch.zeros((), dtype=grid.dtype, device=grid.device))

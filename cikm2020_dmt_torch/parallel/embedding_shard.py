@@ -57,10 +57,12 @@ class EmbeddingEngine:
         return take_clip(table, ids)
 
     def pooled(self, name: str, table: torch.Tensor, ids, wts, lens,
-               feature: Optional[str] = None) -> torch.Tensor:
-        """Mean of the present rows: ``[B, L] -> [B, D]``."""
+               feature: Optional[str] = None,
+               combiner: str = "mean") -> torch.Tensor:
+        """Weighted mean (or, with ``combiner="sum"``, sum) of the present
+        rows: ``[B, L] -> [B, D]``."""
         return pooled_from_grid(self._take(name, table, ids, feature), wts,
-                                lens)
+                                lens, combiner)
 
     def seq(self, name: str, table: torch.Tensor, ids,
             feature: Optional[str] = None) -> torch.Tensor:

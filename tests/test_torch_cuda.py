@@ -1001,3 +1001,66 @@ def test_lattice_model_on_card(model_type, is_bn, cuda_device):
     for a, b in zip(flat(out), flat(cpu)):
         assert a.device.type == cuda_device.type and a.shape == b.shape
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_type", ["din", "dien"])
+def test_baseline_step_matches_cpu_on_card(model_type, cuda_device):
+    """One step of a paper baseline at batch 256 (``conf/dmt.conf``'s
+    widths, tables cut to 5,000 rows, four of them under lazy Adam) on the
+    card against the same step on the CPU, with the tolerances of
+    ``chip_smoke.card_vs_cpu_step`` (which raises past them); the card's
+    step launches one segment sum and two row writes per lazy table and
+    no block."""
+    import chip_smoke as cs
+
+    cs.reset_counts()
+    check = cs.card_vs_cpu_step(_lattice_cfg(model_type), cuda_device)
+    assert cs.read_counts() == {
+        "fused_block_fwd": 0, "fused_block_bwd": 0, "attention_fwd": 0,
+        "attention_bwd": 0, "sorted_segsum": 4, "update_rows": 4,
+        "update_rows_3d": 4}
+    assert check["loss_rel_err"] <= 1e-4 and check["grad_err"] <= 1e-2
+
+
+@pytest.mark.cuda
+def test_dien_request_with_an_empty_group_on_card(cuda_device):
+    """DIEN serving requests whose order or click and cart histories are
+    empty: the card's Scores within 1e-4 of the CPU's, no kernel
+    launched; DIEN's attention weighs a length-0 row's L steps
+    uniformly on the card."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from cikm2020_dmt_torch.models import baselines
+    from cikm2020_dmt_torch.models.components import seq_input_dim
+    from cikm2020_dmt_torch.models.zoo import build_model
+    from cikm2020_dmt_torch.nn.layers import tree_map
+    from cikm2020_dmt_torch.serve.export import Scorer
+
+    cfg = _lattice_cfg("dien")
+    params = build_model(cfg).init(
+        torch.Generator(device=cuda_device).manual_seed(0))
+    _, _, (scale, const) = cs._norm_constants(cfg)
+    card = Scorer(cfg, params, scale, const, device=cuda_device)
+    cpu = Scorer(cfg, tree_map(lambda t: t.cpu(), params), scale, const,
+                 device="cpu")
+    requests = cs.make_requests(cfg, 300, ((17, 0, 3), (0, 33, 0)), 0)
+    cs.reset_counts()
+    got = [card(q) for q in requests]
+    torch.cuda.synchronize()
+    assert not any(cs.read_counts().values())
+    for q, out in zip(requests, got):
+        cs.check_scores(out, 300)
+        want = cpu(q)
+        for k in want:
+            np.testing.assert_allclose(out[k], want[k], rtol=0, atol=1e-4)
+
+    attn = params["attn0"]
+    mask = torch.ones((3, 50), device=cuda_device)
+    mask[0] = 0.0
+    w = baselines.dien_attention_apply(
+        attn, torch.randn((3, seq_input_dim(cfg, 0)), device=cuda_device),
+        torch.randn((3, 50, 16), device=cuda_device), mask)
+    torch.testing.assert_close(w[0], torch.full((50,), 1.0 / 50,
+                                                device=cuda_device))

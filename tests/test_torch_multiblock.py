@@ -136,8 +136,9 @@ def test_run_eval_matches_jax(models):
 
 
 def test_eval_rejects_unported_models():
-    cfg = port_cfg(g._demo_config(**SMALL, model_type="din"))
-    with pytest.raises(ValueError, match="not ported"):
+    """A reference dispatch name that neither package builds."""
+    cfg = port_cfg(g._demo_config(**SMALL, model_type="din_v2"))
+    with pytest.raises(ValueError, match="unknown model_type"):
         make_eval_step(cfg, None)
 
 

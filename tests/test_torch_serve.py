@@ -188,8 +188,9 @@ def test_norm_constants_match_jax():
 
 
 def test_build_model_rejects_unported_types():
-    cfg = port_cfg(_demo_config(**SMALL, model_type="din"))
-    with pytest.raises(ValueError, match="not ported"):
+    """A reference dispatch name that neither package builds."""
+    cfg = port_cfg(_demo_config(**SMALL, model_type="dien_v2"))
+    with pytest.raises(ValueError, match="unknown model_type"):
         t_build(cfg)
 
 

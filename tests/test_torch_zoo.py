@@ -198,8 +198,14 @@ def test_combiner_dims_match_jax():
 
 @pytest.mark.parametrize("name", ["lr", "wnd", "dcn", "din", "dien"])
 def test_build_model_rejects_baselines(name):
-    with pytest.raises(ValueError, match="paper baselines"):
-        build_model(port_cfg(config(name)))
+    """The paper baselines were refused until the port carried them; now
+    ``build_model`` builds each, with the JAX class's task count."""
+    from cikm2020_dmt_tpu.models.zoo import MODEL_REGISTRY as J
+    from cikm2020_dmt_tpu.models.zoo import _register_baselines
+    _register_baselines()
+    model = build_model(port_cfg(config(name)))
+    assert model.name == name
+    assert model.num_tasks == J[name].num_tasks == 1
 
 
 @pytest.mark.parametrize("name", ["nope"] + list(
@@ -210,10 +216,12 @@ def test_build_model_rejects_unknown(name):
 
 
 def test_registry_matches_jax_lattice():
+    """The lattice and the paper baselines: the JAX registry once its
+    baselines are registered."""
     from cikm2020_dmt_tpu.models.zoo import MODEL_REGISTRY as J
-    lattice = {k for k, v in J.items()
-               if v.__module__.endswith("models.zoo")}
-    assert set(MODEL_REGISTRY) == lattice
+    from cikm2020_dmt_tpu.models.zoo import _register_baselines
+    _register_baselines()
+    assert set(MODEL_REGISTRY) == set(J)
     for name, cls in MODEL_REGISTRY.items():
         assert cls.num_tasks == J[name].num_tasks, name
 

@@ -28,7 +28,11 @@ def test_train_loss_and_grads_match_jax(model_type):
 @pytest.mark.parametrize("model_type", MODELS)
 def test_bn_moving_stats_match_jax(model_type):
     """After one train-mode batch: decay 0.9 from zero, so each moving
-    statistic is 0.1 of the batch's."""
+    statistic is 0.1 of the batch's.  ``lr`` has no batch norm to keep
+    statistics of (one dense layer), on either side."""
     c = case(model_type, True)
+    if model_type == "lr":
+        assert c["pstate"] == {} and not dict(leaves(c["jstate"]))
+        return
     assert dict(leaves(c["jstate"]))
     assert_trees_close(c["pstate"], c["jstate"], "model state")
