@@ -123,6 +123,20 @@ an int8 bundle, ``load_scorer`` of each scoring the three requests); and
 the dense optimizers sgd, adadelta, adagrad, rmsprop and ftrl once each
 (one step of ``embed_mlp_demo`` against the CPU, no kernel launched).
 
+The data mesh (``mesh_phase``, after the eval/serve phase, on its shards):
+ranks spawned by ``core.mesh.run_ranks``, the flagship at full width.
+Two ranks sharing the card over gloo (Sku split, 2,500,000 rows a rank)
+against one process at batch 4096 from the same seeded init: ``run_eval``
+over 2 batches of 4096, then 3 steps of 2048 a rank with dropout off
+(each loss within 1e-4, the state after the first and the last step by
+``card_vs_cpu_step``'s rules, ``lazy_overflow``, the metric values;
+exactly the training path's launches a step on each rank), then 2 steps
+with dropout on (finite losses, the ranks' block masks differ), the row
+fetch, the gradient push and the gradient ``all_reduce`` timed; one rank
+over nccl, its step the same bits as the step without a mesh; and
+``cli.train --num_processes 2`` for 2 steps and a save, whose checkpoint
+restores in one process and evaluates as the ranks' gathered state.
+
 The segment sum (``segsum_phase``) is also launched twice on each of its
 inputs: the two results must be the same bits.
 
@@ -657,9 +671,7 @@ def card_vs_cpu_step(cfg, dev) -> dict:
     from cikm2020_dmt_torch.nn.layers import tree_map
     from cikm2020_dmt_torch.train.loop import Trainer
 
-    cfg0 = dataclasses.replace(
-        cfg, dropout_rate_bias=(0.0,) * len(cfg.dropout_rate_bias),
-        transformer=dataclasses.replace(cfg.transformer, dropout_rate=0.0))
+    cfg0 = no_dropout(cfg)
     t0 = time.perf_counter()
     card, cpu = Trainer(cfg0, device=dev), Trainer(cfg0, device="cpu")
     state = card.init_state(torch.Generator(device=dev).manual_seed(SEED))
@@ -3296,6 +3308,577 @@ def zoo_phase(dev) -> dict:
             "optimizers": opts, "counts": counts, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# The data mesh: ranks joined by torch.distributed (core/mesh.py)
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2              # ranks sharing the one card over gloo
+MESH_BATCH = 2048           # examples a rank takes per step
+MESH_STEPS = 3              # compared steps, dropout off
+MESH_DROPOUT_STEPS = 2      # timed steps with dropout on
+MESH_EVAL = (2, 4096)       # eval batches and their size
+MESH_CLI_STEPS = 2          # cli.train --num_processes 2 steps, one save
+MESH_TIMEOUT = 600.0        # seconds a spawned group may take
+NCCL = "nccl"               # the one-rank check's backend
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def no_dropout(cfg):
+    return dataclasses.replace(
+        cfg, dropout_rate_bias=(0.0,) * len(cfg.dropout_rate_bias),
+        transformer=dataclasses.replace(cfg.transformer, dropout_rate=0.0))
+
+
+def _rank_rows(batch: dict, rank: int, n: int, dev) -> dict:
+    k = batch["valid"].shape[0] // n
+    return {key: v[rank * k:(rank + 1) * k].to(dev)
+            for key, v in batch.items()}
+
+
+def _snapshot(tr, state, rows) -> dict:
+    """The compared leaves of a train state, on the host: the params and
+    dense optimizer state but the Sku table, and Sku's ``rows`` with their
+    moments (fetched from their owners on a mesh; every rank calls it)."""
+    from cikm2020_dmt_torch.nn.layers import tree_map
+    from cikm2020_dmt_torch.parallel.full_shard import lookup_fms
+    params = dict(state["params"])
+    params["emb"] = {k: v for k, v in params["emb"].items() if k != "Sku"}
+    table, mv = state["params"]["emb"]["Sku"], state["lazy_opt"]["Sku"]["mv"]
+    if "Sku" in tr.full_mesh:
+        R, p = tr.full_mesh["Sku"]
+        sku, m, v = (lookup_fms(tr.mesh, t, rows, R, p)
+                     for t in (table, mv[0], mv[1]))
+    else:
+        sku, m, v = table[rows], mv[0][rows], mv[1][rows]
+    out = {"params": params, "opt": state["opt"], "sku": sku, "m": m,
+           "v": v, "lazy_overflow": tr.lazy_overflow(state)}
+    return tree_map(lambda t: t.detach().cpu().clone()
+                    if torch.is_tensor(t) else t, out)
+
+
+class _Timer:
+    """Wraps a module function: synchronises and adds up its ms."""
+
+    def __init__(self, module, name: str, dev):
+        self.module, self.name, self.dev = module, name, dev
+        self.real = getattr(module, name)
+        self.ms = []
+
+    def __enter__(self):
+        def timed(*a, **k):
+            _sync(self.dev)
+            t0 = time.perf_counter()
+            out = self.real(*a, **k)
+            _sync(self.dev)
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+        return False
+
+
+def mesh_rank(rank: int, cfg, batches: list, eval_batches: list, rows,
+              dev) -> dict:
+    """One rank of the two sharing the card over gloo: ``run_eval`` on the
+    init params, ``MESH_STEPS`` steps with dropout off from the seeded init
+    (counted, timed, the compared leaves after the first and the last), then
+    ``MESH_DROPOUT_STEPS`` with dropout on, timed by part (row fetch,
+    gradient push, the summed gradients' all_reduce) with the fused
+    block's seeds recorded.  Rank 0 also takes the last step's global
+    batch in one process from the state the ranks gathered before it, and
+    holds the ranks' Sku m row by row against that step's
+    (``_check_sku_rows``): the exchange of that step alone, without the
+    drift of the earlier steps' rounding."""
+    from cikm2020_dmt_torch.core.mesh import build_mesh
+    from cikm2020_dmt_torch.data.pipeline import Batch
+    from cikm2020_dmt_torch.metrics.streaming import (task_metrics_init,
+                                                      task_metrics_values)
+    from cikm2020_dmt_torch.nn.layers import tree_map
+    from cikm2020_dmt_torch.ops import block
+    from cikm2020_dmt_torch.parallel import full_shard
+    from cikm2020_dmt_torch.train import loop
+    from cikm2020_dmt_torch.train.evaluate import run_eval
+
+    dev = torch.device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg0 = no_dropout(cfg)
+    mesh = build_mesh(cfg0, device=dev)
+    tr = loop.Trainer(cfg0, mesh=mesh)
+    state = tr.init_state(torch.Generator(device=dev).manual_seed(SEED))
+    n = eval_batches[0]["valid"].shape[0]
+    ev = run_eval(cfg0, tr.model, state["params"], None, n, mesh=mesh,
+                  data_iter=[Batch(b, [b""] * n) for b in eval_batches])
+    local = [_rank_rows(b, rank, mesh.size, dev) for b in batches]
+    rows = rows.to(dev)
+    metrics = task_metrics_init(dev)
+    gen = torch.Generator(device=dev)
+    _sync(dev)
+    reset_counts()
+    losses, ms, snaps = [], [], []
+    for i, b in enumerate(local):
+        if i == len(local) - 1:
+            # the state before the last step, whole (every rank gathers)
+            before_last = tree_map(lambda t: t.clone(), tr.whole_state(state))
+            if rank != 0:
+                del before_last
+        t0 = time.perf_counter()
+        gen.manual_seed(loop.dropout_seed(cfg.seed, i, mesh.data_index))
+        state, metrics, loss = tr.train_step(state, metrics, b, gen)
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(tr.reduce_loss(loss))
+        if i in (0, len(local) - 1):
+            snaps.append(_snapshot(tr, state, rows))
+    counts = read_counts()
+    vals = task_metrics_values(tr.reduce_metrics(metrics))
+    same_start = None
+    if rank == 0:
+        one = loop.Trainer(cfg0, device=dev)
+        after, _, _ = one.train_step(
+            before_last, task_metrics_init(dev),
+            {k: v.to(dev) for k, v in batches[-1].items()}, gen)
+        want = _snapshot(one, after, rows)
+        same_start = _check_sku_rows(snaps[-1]["m"], want["m"], True)
+        del one, after, before_last, want
+
+    # ---- dropout on: timed by part, the block's seeds recorded ----
+    trd = loop.Trainer(cfg, mesh=mesh)
+    seeds = []
+    real = block._FusedBlock.apply
+
+    def spy(enc_in, dec_in, seq_mask, seed, *rest):
+        seeds.append(int(seed.reshape(-1)[0]))
+        return real(enc_in, dec_in, seq_mask, seed, *rest)
+
+    reset_counts()
+    d_losses, d_ms = [], []
+    block._FusedBlock.apply = spy
+    try:
+        with _Timer(full_shard, "fetch_rows", dev) as fetch, \
+                _Timer(loop, "fms_adam_update", dev) as push, \
+                _Timer(loop.Trainer, "_sum_over_ranks", dev) as reduce:
+            for i in range(MESH_DROPOUT_STEPS):
+                t0 = time.perf_counter()
+                gen.manual_seed(loop.dropout_seed(cfg.seed, MESH_STEPS + i,
+                                                  mesh.data_index))
+                state, metrics, loss = trd.train_step(state, metrics,
+                                                      local[i], gen)
+                _sync(dev)
+                d_ms.append((time.perf_counter() - t0) * 1e3)
+                d_losses.append(trd.reduce_loss(loss))
+    finally:
+        block._FusedBlock.apply = real
+    return {"eval": (ev[0], ev[2], ev[3]) if rank == 0 else None,
+            "losses": losses, "step_ms": ms, "counts": counts,
+            "sku_row_m_err_same_start": same_start,
+            "snaps": snaps if rank == 0 else None, "metrics": vals,
+            "dropout_losses": d_losses, "dropout_step_ms": d_ms,
+            "dropout_counts": read_counts(), "seeds": seeds,
+            "fetch_ms": fetch.ms, "push_ms": push.ms,
+            "all_reduce_ms": reduce.ms,
+            "share_rows": int(state["params"]["emb"]["Sku"].shape[0]),
+            "jax": any(m.split(".")[0] in ("jax", "cikm2020_dmt_tpu")
+                       for m in sys.modules)}
+
+
+def nccl_rank(rank: int, cfg, batch: dict, dev) -> dict:
+    """One rank over nccl: a mesh step against the step without a mesh from
+    the same init, both under ``deterministic``: the same bits."""
+    from cikm2020_dmt_torch.core.mesh import build_mesh
+    from cikm2020_dmt_torch.metrics.streaming import task_metrics_init
+    from cikm2020_dmt_torch.train.loop import Trainer
+
+    dev = torch.device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg0 = no_dropout(cfg)
+    mesh = build_mesh(cfg0, device=dev)
+    out = {"backend": mesh.backend}
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    results = []
+    for tr in (Trainer(cfg0, mesh=mesh), Trainer(cfg0, device=dev)):
+        state = tr.init_state(torch.Generator(device=dev).manual_seed(SEED))
+        with deterministic():
+            reset_counts()
+            s1, _, loss = tr.train_step(state, task_metrics_init(dev), batch,
+                                        torch.Generator(device=dev))
+            _sync(dev)
+        results.append((s1, loss, read_counts()))
+        del state
+    (a, la, ca), (b, lb, cb) = results
+    out["leaves"] = _same_bits(a, b, "nccl mesh step vs no mesh")
+    if not torch.equal(la, lb):
+        raise AssertionError(f"nccl mesh step loss {float(la)} vs "
+                             f"{float(lb)}")
+    out.update(loss=float(la), counts=ca, counts_plain=cb)
+    return out
+
+
+def cli_rank(rank: int, argv: list, cfg, data: str, n: int) -> dict:
+    """``cli.train.main(argv)`` as rank ``rank``, counted; then rank 0
+    evaluates the state the ranks ended with (gathered) in one process
+    over ``data``."""
+    from cikm2020_dmt_torch.cli import train as cli
+    from cikm2020_dmt_torch.models.zoo import build_model
+    from cikm2020_dmt_torch.train.evaluate import run_eval
+
+    reset_counts()
+    t0 = time.perf_counter()
+    tr = cli.main(argv + ["--process_id", str(rank)])
+    _sync(tr.device)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    whole = tr.whole_state(tr.state)
+    out = {"counts": counts, "seconds": seconds, "last_step": tr.last_step,
+           "save_s": dict(tr.save_seconds)}
+    if rank == 0:
+        # a model of its own: the trainer's looks Sku up on the mesh
+        vals, _, clk, ord_ = run_eval(cfg, build_model(cfg), whole["params"],
+                                      data, n, device=tr.device,
+                                      model_state=whole["model_state"])
+        out["eval"] = (vals, clk, ord_)
+    return out
+
+
+def _compare_snaps(got: dict, want: dict, before: dict, lr: float,
+                   steps: int) -> dict:
+    """``card_vs_cpu_step``'s rules on two snapshots: m (0.1 g after one
+    step) norm-wise within 1e-2 for float32 params and 2**-7 for bfloat16
+    ones (Sku's moments are float32, its table bf16), leaves of
+    noise-level gradient skipped; params within 2 lr a step (+ one bf16
+    step of the largest |value| for bf16 params) and a median |diff|
+    below 1e-6 a step over the elements that moved from ``before`` (the
+    init), per leaf with a clear gradient; v within twice m's tolerance.
+    Both per-step bounds add up over ``steps``: each step's sum order
+    moves the states apart once more.  Sku's m is also held row by row
+    (``_check_sku_rows``)."""
+    def pairs(*trees):
+        """(path, leaf of each tree), matched by path (a step moves the
+        lazy tables to the end of their dict)."""
+        first, *rest = [dict(_leaves(t)) for t in trees]
+        return [(p, v, *(r[p] for r in rest)) for p, v in first.items()]
+
+    bf16 = {p for p, t in _leaves(want["params"])
+            if t.dtype == torch.bfloat16}
+    if want["sku"].dtype == torch.bfloat16:
+        bf16 |= {"/Sku", "/Sku/m", "/Sku/v"}
+    g_pairs = pairs(want["opt"]["m"], got["opt"]["m"])
+    g_pairs.append(("/Sku/m", want["m"], got["m"]))
+    top = max(float(b.abs().max()) for _, b, _ in g_pairs)
+    g_err = 0.0
+    noise = set()
+    for path, b, a in g_pairs:
+        if float(b.abs().max()) < 1e-6 * top:
+            noise.add(path)
+            continue
+        tol = 2.0 ** -7 if path in bf16 else BWD_TOL_F32
+        err = float((a.float() - b.float()).norm() / b.float().norm())
+        g_err = max(g_err, err)
+        if not err <= tol:
+            raise AssertionError(f"mesh vs one process m {path}: {err:.3e}")
+    p_pairs = pairs(want["params"], got["params"], before["params"])
+    p_pairs.append(("/Sku", want["sku"], got["sku"], before["sku"]))
+    p_err = p_med = 0.0
+    for path, b, a, b0 in p_pairs:
+        moved = b != b0
+        a, b = a.float(), b.float()
+        tol = 2 * lr * steps + (2.0 ** -7 * float(b.abs().max())
+                                if path in bf16 else 0.0)
+        d = (a - b).abs()
+        p_err = max(p_err, float(d.max()) / tol)
+        if not float(d.max()) <= tol:
+            raise AssertionError(f"mesh vs one process param {path}: "
+                                 f"{float(d.max()):.3e} (tol {tol:.3e})")
+        grad = "/Sku/m" if path == "/Sku" else path
+        if grad not in noise and int(moved.sum()):
+            med = float(d[moved].median())
+            p_med = max(p_med, med)
+            if not med <= 1e-6 * steps:
+                raise AssertionError(f"mesh vs one process param {path}: "
+                                     f"median |diff| {med:.3e} over the "
+                                     f"moved elements after {steps} steps")
+    v_pairs = pairs(want["opt"]["v"], got["opt"]["v"])
+    v_pairs.append(("/Sku/v", want["v"], got["v"]))
+    v_top = max(float(b.abs().max()) for _, b, _ in v_pairs)
+    v_err = 0.0
+    for path, b, a in v_pairs:
+        if float(b.abs().max()) < 1e-6 * v_top:
+            continue
+        tol = 2 * (2.0 ** -7 if path in bf16 else BWD_TOL_F32)
+        err = float((a - b).norm() / b.norm())
+        v_err = max(v_err, err)
+        if not err <= tol:
+            raise AssertionError(f"mesh vs one process v {path}: {err:.3e}")
+    if got["lazy_overflow"] != want["lazy_overflow"]:
+        raise AssertionError(f"lazy_overflow {got['lazy_overflow']} vs "
+                             f"{want['lazy_overflow']}")
+    return {"grad_err": g_err, "param_err_over_tol": p_err,
+            "param_median_err": p_med, "v_err": v_err,
+            "sku_row_m_err": _check_sku_rows(got["m"], want["m"],
+                                             steps == 1)}
+
+
+def _check_sku_rows(got: torch.Tensor, want: torch.Tensor,
+                    by_element: bool) -> float:
+    """Sku's m on each touched row: a group that a rank's push lost or
+    sent to the wrong owner leaves its rows' m zero on one side only, or
+    off by a rank's whole share, which the norm-wise bound cannot see
+    among ~227k groups.  So a row is zero on both sides or on neither,
+    and ``by_element`` (after the first step, where the two runs start
+    from the same params and differ only in the order of the bfloat16
+    gradient rows' sums) every element is within 2**-7 of its |m| plus
+    the row's largest |m| (the floor of an element whose rank shares
+    cancel).  Later steps of the two runs start from params that
+    bfloat16 rounding has set a unit apart here and there, so their m
+    drifts further (past 3 * 2**-7 in a CPU rehearsal) and only the zero
+    pattern holds there; ``mesh_rank`` holds the last step by element
+    against one process that starts it from the ranks' own state.
+    Returns the largest |diff| / (|m| + row max)."""
+    a, b = got.float(), want.float()
+    zero_a, zero_b = (a == 0).all(-1), (b == 0).all(-1)
+    if not torch.equal(zero_a, zero_b):
+        raise AssertionError(
+            f"mesh vs one process Sku m: {int((zero_a & ~zero_b).sum())} "
+            f"touched rows zero on the mesh only, "
+            f"{int((zero_b & ~zero_a).sum())} in one process only")
+    scale = b.abs() + b.abs().amax(-1, keepdim=True)
+    err = float(((a - b).abs() / scale.clamp(min=1e-30)).max())
+    if by_element and not err <= 2.0 ** -7:
+        raise AssertionError(f"mesh vs one process Sku m row by row: "
+                             f"{err:.3e} (tol {2.0 ** -7:.3e})")
+    return err
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_phase(cfg, dev, expected: dict, data: str, d: str) -> dict:
+    """The data mesh (``core/mesh.py``, ``parallel/full_shard.py``) at the
+    flagship's width, ranks spawned with ``core.mesh.run_ranks``:
+
+    - two ranks sharing the card over gloo, ``MESH_BATCH`` examples each,
+      against one process at the global batch from the same seeded init:
+      ``run_eval`` on the init over ``MESH_EVAL`` (scores and metric
+      values within ``SCORES_TOL``), then ``MESH_STEPS`` steps, dropout off
+      (each step's loss within 1e-4, the state after the first and the last
+      by ``_compare_snaps``, ``lazy_overflow``, metric values within 1e-4;
+      exactly ``expected`` launches per step on each rank), then
+      ``MESH_DROPOUT_STEPS`` with dropout on (finite losses, the ranks'
+      block masks differ), timed by part;
+    - one rank over nccl: the mesh step the same bits as the step without a
+      mesh;
+    - ``cli.train --num_processes 2`` over the files phase's shards
+      ``data``, ``MESH_CLI_STEPS`` steps and a save (``expected`` launches
+      per step on each rank): the checkpoint restores into a one-process
+      ``Trainer``, and ``run_eval`` from it equals the same from the state
+      the ranks ended with."""
+    from cikm2020_dmt_torch.core.checkpoint import CheckpointManager
+    from cikm2020_dmt_torch.core.mesh import run_ranks
+    from cikm2020_dmt_torch.data.pipeline import Batch
+    from cikm2020_dmt_torch.metrics.streaming import (task_metrics_init,
+                                                      task_metrics_values)
+    from cikm2020_dmt_torch.ops.block import dropout_mask
+    from cikm2020_dmt_torch.train import loop
+    from cikm2020_dmt_torch.train.evaluate import run_eval
+
+    t_all = time.perf_counter()
+    n_ranks, B = MESH_RANKS, MESH_BATCH * MESH_RANKS
+    cfg0 = no_dropout(cfg)
+    batches = [synthetic_batch(cfg, B, SEED + 700 + i, "cpu")
+               for i in range(MESH_STEPS)]
+    eval_batches = [synthetic_batch(cfg, MESH_EVAL[1], SEED + 720 + i, "cpu")
+                    for i in range(MESH_EVAL[0])]
+    rows = torch.unique(torch.cat([batch_ids(cfg, b, "Sku")
+                                   for b in batches]))
+
+    # ---- one process at the global batch ----
+    tr = loop.Trainer(cfg0, device=dev)
+    state = tr.init_state(torch.Generator(device=dev).manual_seed(SEED))
+    n = MESH_EVAL[1]
+    one_eval = run_eval(cfg0, tr.model, state["params"], None, n,
+                        device=dev, data_iter=[Batch(b, [b""] * n)
+                                               for b in eval_batches])
+    _sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    metrics = task_metrics_init(dev)
+    gen = torch.Generator(device=dev)
+    one_losses, one_ms = [], []
+    one_snaps = [_snapshot(tr, state, rows.to(dev))]
+    for i, b in enumerate(batches):
+        b = {k: v.to(dev) for k, v in b.items()}
+        t0 = time.perf_counter()
+        gen.manual_seed(loop.dropout_seed(cfg.seed, i))
+        state, metrics, loss = tr.train_step(state, metrics, b, gen)
+        _sync(dev)
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+        one_losses.append(float(loss))
+        if i in (0, MESH_STEPS - 1):
+            one_snaps.append(_snapshot(tr, state, rows.to(dev)))
+    one_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    one_vals = task_metrics_values(metrics)
+    del tr, state, metrics
+    torch.cuda.empty_cache()
+
+    # ---- two ranks sharing the card over gloo ----
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_rank, n_ranks, cfg, batches, eval_batches, rows,
+                      str(dev), backend="gloo", timeout_s=MESH_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+    for r in ranks:
+        if r["jax"]:
+            raise AssertionError("a mesh rank imported JAX")
+        for name, got in r["counts"].items():
+            if got != expected.get(name, 0) * MESH_STEPS:
+                raise AssertionError(f"mesh rank: {name} launched {got} "
+                                     f"times in {MESH_STEPS} steps")
+        for name, got in r["dropout_counts"].items():
+            if got != expected.get(name, 0) * MESH_DROPOUT_STEPS:
+                raise AssertionError(f"mesh rank, dropout on: {name} "
+                                     f"launched {got} times")
+        l_err = max(abs(a - b) / abs(b)
+                    for a, b in zip(r["losses"], one_losses))
+        if not l_err <= 1e-4:
+            raise AssertionError(f"mesh vs one process loss: {r['losses']} "
+                                 f"vs {one_losses}")
+        m_err = max(abs(r["metrics"][k] - one_vals[k]) for k in one_vals)
+        if not m_err <= 1e-4:
+            raise AssertionError(f"mesh vs one process metrics: "
+                                 f"{r['metrics']} vs {one_vals}")
+        if not all(np.isfinite(r["dropout_losses"])):
+            raise AssertionError(f"dropout on: loss {r['dropout_losses']}")
+    first = _compare_snaps(ranks[0]["snaps"][0], one_snaps[1], one_snaps[0],
+                           cfg.learning_rate[0], 1)
+    last = _compare_snaps(ranks[0]["snaps"][1], one_snaps[2], one_snaps[0],
+                          cfg.learning_rate[0], MESH_STEPS)
+    last["sku_row_m_err_same_start"] = ranks[0]["sku_row_m_err_same_start"]
+    vals, clk, ord_ = ranks[0]["eval"]
+    e_err = max(float(np.abs(clk - one_eval[2]).max()),
+                float(np.abs(ord_ - one_eval[3]).max()),
+                max(abs(vals[k] - one_eval[0][k]) for k in vals))
+    if not e_err <= SCORES_TOL:
+        raise AssertionError(f"mesh eval vs one process: {e_err}")
+    s0, s1 = ranks[0]["seeds"], ranks[1]["seeds"]
+    T = cfg.transformer
+    masks_differ = [
+        not torch.equal(dropout_mask(a, 0, 4, T.maxlen_k, T.d_model,
+                                     T.dropout_rate, "cpu"),
+                        dropout_mask(b, 0, 4, T.maxlen_k, T.d_model,
+                                     T.dropout_rate, "cpu"))
+        for a, b in zip(s0, s1)]
+    if not (s0 and len(s0) == len(s1) and all(masks_differ)):
+        raise AssertionError(f"the ranks' fused-block seeds {s0} {s1}")
+    shared = f"two ranks sharing one card over gloo; {card_name_and_limit()}"
+    out = {"ranks": n_ranks, "batch_per_rank": MESH_BATCH,
+           "step_ms_per_rank": [r["step_ms"] for r in ranks],
+           "one_process_step_ms": one_ms, "one_process_peak_gb": one_peak,
+           "fetch_ms": ranks[0]["fetch_ms"], "push_ms": ranks[0]["push_ms"],
+           "all_reduce_ms": ranks[0]["all_reduce_ms"],
+           "dropout_step_ms": [r["dropout_step_ms"] for r in ranks],
+           "first_step": first, "last_step": last, "eval_err": e_err,
+           "sku_share_rows": [r["share_rows"] for r in ranks],
+           "ranks_wall_s": ranks_s}
+    log(f"mesh ({shared}), batch {MESH_BATCH} a rank: step ms per rank "
+        f"{json.dumps(out['step_ms_per_rank'])} (host clock, synchronised; "
+        f"the first step pays the ranks' warm-up); dropout on "
+        f"{json.dumps(out['dropout_step_ms'])} with the parts timed: row "
+        f"fetch {json.dumps(out['fetch_ms'])} ms, gradient push "
+        f"{json.dumps(out['push_ms'])} ms, gradient all_reduce "
+        f"{json.dumps(out['all_reduce_ms'])} ms (rank 0, each synchronised)")
+    log(f"mesh: one process at batch {B}: step ms {json.dumps(one_ms)}, "
+        f"peak memory {one_peak:.2f} GB; losses {json.dumps(one_losses)} vs "
+        f"the ranks' {json.dumps(ranks[0]['losses'])}; after step 1 "
+        f"{json.dumps(first)}, after step {MESH_STEPS} {json.dumps(last)}; "
+        f"eval max |diff| {e_err:.3e}; Sku rows per rank "
+        f"{out['sku_share_rows']}; launches per rank "
+        f"{json.dumps(ranks[0]['counts'])}; wall {ranks_s:.1f}s")
+    counts = {k: sum(r["counts"][k] + r["dropout_counts"][k] for r in ranks)
+              for k in ranks[0]["counts"]}
+
+    # ---- one rank over nccl: the same bits as no mesh ----
+    t0 = time.perf_counter()
+    nccl = run_ranks(nccl_rank, 1, cfg, synthetic_batch(
+        cfg, MESH_BATCH, SEED + 740, "cpu"), str(dev), backend=NCCL,
+        timeout_s=MESH_TIMEOUT)[0]
+    if nccl["counts"] != {k: expected.get(k, 0) for k in nccl["counts"]}:
+        raise AssertionError(f"nccl mesh step launched {nccl['counts']}")
+    log(f"mesh: one rank over {nccl['backend']}: the mesh step the same "
+        f"bits as the step without a mesh ({nccl['leaves']} leaves, loss "
+        f"{nccl['loss']:.6f}); launches {json.dumps(nccl['counts'])}; wall "
+        f"{time.perf_counter() - t0:.1f}s")
+    for k, v in nccl["counts"].items():
+        counts[k] += v
+
+    # ---- cli.train --num_processes 2 over the files phase's shards ----
+    t0 = time.perf_counter()
+    ccfg = dataclasses.replace(cfg, validate_step=MESH_CLI_STEPS,
+                               validation_batch_size=MESH_EVAL[1])
+    conf = os.path.join(d, "mesh.conf")
+    out_dir = os.path.join(d, "mesh_out")
+    write_conf(ccfg, conf, data, out_dir, validation_data_path=data)
+    argv = ["--conf_file", conf, "--max_steps", str(MESH_CLI_STEPS),
+            "--num_processes", str(n_ranks), "--coordinator",
+            f"127.0.0.1:{_free_port()}", "--dist_backend", "gloo",
+            "--device", str(dev), "--log_every", "1"]
+    from cikm2020_dmt_torch.core.config import DMTConfig
+    read = DMTConfig.from_ini(conf)
+    clis = run_ranks(cli_rank, n_ranks, argv, read, data, MESH_EVAL[1],
+                     backend=None, timeout_s=MESH_TIMEOUT)
+    for r in clis:
+        if r["last_step"] != MESH_CLI_STEPS:
+            raise AssertionError(f"cli.train ranks stopped at {r}")
+        for name, got in r["counts"].items():
+            if got != expected.get(name, 0) * MESH_CLI_STEPS:
+                raise AssertionError(f"cli.train rank: {name} launched "
+                                     f"{got} times")
+        for k in counts:
+            counts[k] += r["counts"][k]
+    one = loop.Trainer(read, device=dev)
+    ckpt = CheckpointManager(read.model_path)
+    if not ckpt.has_step(MESH_CLI_STEPS):
+        raise AssertionError("cli.train: no complete checkpoint")
+    restored = ckpt.restore(MESH_CLI_STEPS, dev)
+    if (int(restored["step"]) != MESH_CLI_STEPS or tuple(
+            restored["params"]["emb"]["Sku"].shape) != (
+            max(s.id_size for s in cfg.embeddings if s.table == "Sku"),
+            next(s.dim for s in cfg.embeddings if s.table == "Sku"))):
+        raise AssertionError("cli.train: the checkpoint is not the whole "
+                             "one-process state")
+    vals, _, clk, ord_ = run_eval(read, one.model, restored["params"], data,
+                                  MESH_EVAL[1], device=dev,
+                                  model_state=restored["model_state"])
+    w_vals, w_clk, w_ord = clis[0]["eval"]
+    c_err = max(float(np.abs(clk - w_clk).max()),
+                float(np.abs(ord_ - w_ord).max()),
+                max(abs(vals[k] - w_vals[k]) for k in vals))
+    if not c_err <= SCORES_TOL:
+        raise AssertionError(f"eval from the checkpoint vs the ranks' "
+                             f"state: {c_err}")
+    del restored, one
+    torch.cuda.empty_cache()
+    log(f"mesh: cli.train --num_processes {n_ranks} ({shared}), "
+        f"{MESH_CLI_STEPS} steps and a save: {clis[0]['seconds']:.1f}s on "
+        f"rank 0 (save {json.dumps(clis[0]['save_s'])} s); eval from the "
+        f"checkpoint in one process vs from the ranks' state max |diff| "
+        f"{c_err:.3e}; wall {time.perf_counter() - t0:.1f}s")
+    out.update(counts=counts, cli_eval_err=c_err,
+               cli_seconds=clis[0]["seconds"],
+               wall_s=time.perf_counter() - t_all)
+    log(f"mesh phase: wall {out['wall_s']:.1f}s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -3406,6 +3989,13 @@ def main() -> int:
         fwd["launches_by_path"]["eval_serve"] = n_evs
         fwd["eval_serve_launches"] = evs["launches"]
         log(f"eval/serve phase: wall {time.perf_counter() - t_e:.1f}s")
+
+        # ---- the data mesh: spawned ranks joined by torch.distributed ----
+        torch.cuda.empty_cache()
+        mesh = mesh_phase(cfg, dev, EXPECTED_PER_STEP["dmt"], files["data"],
+                          fdir)
+        for rec in [fwd, bwd, seg] + rows:
+            rec["launches_by_path"]["mesh"] = mesh["counts"][rec["name"]]
     t_flag = time.perf_counter() - t_flag
 
     # ---- conf/dmt_2block.conf: 2+2 stacks, the attention kernels ----
@@ -3469,6 +4059,12 @@ def main() -> int:
         f"{p['eval_examples_per_s']:.1f} examples/s, request p50 "
         f"{p['p50_ms']:.3f} ms" for name, p in zoo["paths"].items())
         + f"; wall {zoo['wall_s']:.1f}s")
+    log(f"mesh (two ranks sharing one card over gloo, batch "
+        f"{MESH_BATCH} a rank): step ms "
+        f"{json.dumps(mesh['step_ms_per_rank'])}; one process at batch "
+        f"{MESH_BATCH * MESH_RANKS} "
+        f"{json.dumps(mesh['one_process_step_ms'])} ms, peak "
+        f"{mesh['one_process_peak_gb']:.2f} GB; wall {mesh['wall_s']:.1f}s")
     log(f"build wall {build_wall:.2f}s; script wall "
         f"{time.perf_counter() - t_main:.1f}s")
     print(smi)

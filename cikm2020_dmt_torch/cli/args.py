@@ -30,21 +30,31 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device: the card by default, cpu for the "
                         "plain PyTorch path")
-    # several processes (multi-GPU); one process when omitted
-    p.add_argument("--num_processes", type=int, default=None)
-    p.add_argument("--process_id", type=int, default=None)
+    # several processes, one per device (a data mesh); one process when
+    # omitted
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="processes in all (default $DMT_NUM_PROCESSES, 1)")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="this process's rank in [0, num_processes)")
     p.add_argument("--coordinator", default=None,
                    help="host:port of process 0")
+    p.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
+                   help="nccl (one card per process; the default on the "
+                        "card) or gloo (the CPU, the default there, or "
+                        "processes that share a card)")
     return p
 
 
-def maybe_init_distributed(args: argparse.Namespace) -> None:
-    """One process runs on one device; more than one raises, since the
-    multi-GPU path is not ported yet."""
-    if args.num_processes and args.num_processes > 1:
-        raise NotImplementedError(
-            f"--num_processes {args.num_processes}: multi-GPU is not ported "
-            "to the PyTorch package yet; run one process on one device")
+def maybe_init_distributed(args: argparse.Namespace) -> bool:
+    """Joins the process group when the flags (or $DMT_NUM_PROCESSES) ask
+    for more than one process (``core.mesh.initialize_distributed``);
+    True when it did."""
+    from ..core.mesh import default_backend, initialize_distributed
+    backend = args.dist_backend or default_backend(args.device)
+    return initialize_distributed(coordinator=args.coordinator,
+                                  num_processes=args.num_processes,
+                                  process_id=args.process_id,
+                                  backend=backend)
 
 
 def load_config(args: argparse.Namespace, **overrides) -> DMTConfig:
@@ -58,7 +68,9 @@ def load_config(args: argparse.Namespace, **overrides) -> DMTConfig:
 def apply_label_stats(cfg: DMTConfig) -> DMTConfig:
     """Caps the step budget from the train label-count stat file
     (reference recsys_conf.py:139-151: one count per line; examples = their
-    sum; max_iter_step = epochs x examples / batch, one replica)."""
+    sum; max_iter_step = epochs x examples / (batch x data ranks), the data
+    ranks being the processes of the group)."""
+    from ..core.mesh import world_size
     path = cfg.train_data_stat_path
     if not path:
         return cfg
@@ -71,7 +83,8 @@ def apply_label_stats(cfg: DMTConfig) -> DMTConfig:
                 counts = tuple(int(line.strip()) for line in f
                                if line.strip())
             if counts:
-                return cfg.recompute_max_steps(counts, num_replicas=1)
+                return cfg.recompute_max_steps(
+                    counts, num_replicas=world_size())
         except (OSError, ValueError):
             continue
     return cfg

@@ -147,3 +147,73 @@ def train_state_from_jax(cfg: DMTConfig, state, device="cpu") -> dict:
         "step": _scalar(state["step"], device),
         "lazy_overflow": _scalar(state.get("lazy_overflow", 0), device),
     }
+
+
+# ---------------------------------------------------------------------------
+# A train state on a data mesh
+# ---------------------------------------------------------------------------
+
+
+def shard_params(cfg: DMTConfig, params: dict, mesh) -> dict:
+    """Params on ``mesh.device`` with each full-mesh table cut to this
+    rank's rows (``full_shard.share_rows``); a table already cut to them
+    stays as it is."""
+    from .parallel.full_shard import fms_tables, share_rows
+    out = tree_map(lambda t: t.to(mesh.device), params)
+    for name, (R, p) in fms_tables(cfg, mesh.size).items():
+        if out["emb"][name].shape[0] == R:
+            lo, hi = share_rows(R, p, mesh.size, mesh.rank)
+            out["emb"][name] = out["emb"][name][lo:hi].clone()
+    return out
+
+
+def shard_state(cfg: DMTConfig, state: dict, mesh) -> dict:
+    """A whole train state (any device) -> this rank's share on
+    ``mesh.device``: each full-mesh table's rows ``share_rows`` and the
+    same rows of its [2, R, D] moments, ``lazy_overflow`` with rank 0 only
+    (the ranks' counts are summed where they are read), every other leaf
+    whole."""
+    from .parallel.full_shard import fms_tables, share_rows
+    out = tree_map(lambda t: t.to(mesh.device), state)
+    for name, (R, p) in fms_tables(cfg, mesh.size).items():
+        lo, hi = share_rows(R, p, mesh.size, mesh.rank)
+        out["params"]["emb"][name] = out["params"]["emb"][name][lo:hi].clone()
+        if name in out.get("lazy_opt", {}):
+            out["lazy_opt"][name]["mv"] = \
+                out["lazy_opt"][name]["mv"][:, lo:hi].clone()
+    if mesh.rank != 0 and "lazy_overflow" in out:
+        out["lazy_overflow"] = torch.zeros_like(out["lazy_overflow"])
+    return out
+
+
+def gather_state(cfg: DMTConfig, state: dict, mesh) -> dict:
+    """This rank's share -> the whole train state on every rank (on
+    ``mesh.device``), in the one-process layout: the full-mesh tables and
+    moments gathered in rank order, ``lazy_overflow`` summed.  Every rank
+    takes part (collectives)."""
+    from .parallel.full_shard import fms_tables, share_rows
+    out = dict(state)
+    out["params"] = dict(state["params"])
+    out["params"]["emb"] = dict(state["params"].get("emb", {}))
+    out["lazy_opt"] = dict(state.get("lazy_opt", {}))
+    for name, (R, p) in fms_tables(cfg, mesh.size).items():
+        lo, hi = share_rows(R, p, mesh.size, 0)
+        per = hi - lo
+
+        def whole(t, axis):
+            pad = per - t.shape[axis]
+            if pad:
+                shape = list(t.shape)
+                shape[axis] = pad
+                t = torch.cat([t, t.new_zeros(shape)], axis)
+            g = mesh.all_gather(t)                     # [N, ...]
+            g = torch.cat(list(g.unbind(0)), axis)
+            return g.narrow(axis, 0, R)
+
+        out["params"]["emb"][name] = whole(state["params"]["emb"][name], 0)
+        if name in out["lazy_opt"]:
+            out["lazy_opt"][name] = {
+                "mv": whole(state["lazy_opt"][name]["mv"], 1)}
+    if "lazy_overflow" in state:
+        out["lazy_overflow"] = mesh.reduce_sum(state["lazy_overflow"])
+    return out

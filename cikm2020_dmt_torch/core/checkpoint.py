@@ -65,15 +65,25 @@ class CheckpointManager:
         ``model.ckpt-{step}``, then its DONE marker.  A save of a step that
         exists replaces it; its marker is removed first, so the step reads
         as incomplete until the new file is in place."""
+        path = self.write(step, state)
+        self.mark_done(step)
+        return path
+
+    def write(self, step: int, state: Any) -> str:
+        """``save`` without the marker: removes the step's marker, then
+        writes the state file into place."""
         path = self.ckpt_dir(step)
         os.makedirs(path, exist_ok=True)
         marker = self.marker_path(step)
         if os.path.exists(marker):
             os.remove(marker)
         save_file(state, os.path.join(path, STATE_FILE))
-        with open(marker, "w") as f:
-            f.write(str(step))
         return path
+
+    def mark_done(self, step: int) -> None:
+        """The DONE marker of a step whose state file is in place."""
+        with open(self.marker_path(step), "w") as f:
+            f.write(str(step))
 
     def restore(self, step: int, device="cpu") -> Any:
         """The state saved at ``step``, its tensors on ``device``."""

@@ -25,6 +25,8 @@ from typing import Callable, Optional
 
 import torch
 
+from ..core import mesh as meshlib
+
 Params = dict
 State = dict
 Init = Callable[[torch.Generator, tuple, torch.dtype], torch.Tensor]
@@ -145,11 +147,25 @@ def batchnorm_apply(params: Params, state: State, x: torch.Tensor, *,
     axis.  In training the batch's mean and population variance (summed in
     float32, kept in x's dtype) normalize, and the moving statistics
     become ``moving * decay + batch * (1 - decay)`` (no gradient flows into
-    them); in eval the moving statistics normalize, cast to x's dtype."""
+    them); in eval the moving statistics normalize, cast to x's dtype.
+    During a step on a data mesh (``core.mesh.active``) the statistics are
+    the global batch's, as in the JAX package."""
     if train:
         xf = x.float()
-        mean = xf.mean(dim=0).to(x.dtype)
-        var = xf.var(dim=0, unbiased=False).to(x.dtype)
+        mesh = meshlib.current()
+        if mesh is None:
+            mean = xf.mean(dim=0).to(x.dtype)
+            var = xf.var(dim=0, unbiased=False).to(x.dtype)
+        else:
+            # the global batch's statistics (each rank holds an equal
+            # slice): the sum, then the sum of squared deviations from
+            # the global mean, over every rank, with their gradient
+            n = xf.shape[0] * mesh.size
+            mean32 = meshlib.all_reduce_sum(xf.sum(dim=0), mesh) / n
+            dev = xf - mean32
+            var = (meshlib.all_reduce_sum((dev * dev).sum(dim=0), mesh)
+                   / n).to(x.dtype)
+            mean = mean32.to(x.dtype)
         new_state = {
             "moving_mean": (state["moving_mean"] * decay
                             + mean.detach() * (1 - decay)),

@@ -1,6 +1,6 @@
 """Embedding engine: the lookups a model makes, behind one object.
 
-Single device.  The reference engine
+The reference engine
 (``cikm2020_dmt_tpu/parallel/embedding_shard.py``) routes large tables
 through dedup, one-hot or packed-row gathers; those exist for the TPU's
 scatter and tiling costs and change no value, so here a lookup is a clamped
@@ -14,6 +14,13 @@ step's id-union grid at the site of their feature (``overlay_take``),
 which keeps that table's gradient row-sparse.  The ``name`` argument names
 the table, as in the reference; bias-net tables are namespaced
 ``bias:<table>``, so no overlay reaches them.
+
+On a data mesh (``make_engine(cfg, mesh)``) a full-mesh table holds only
+the rank's share of its rows (``parallel/full_shard.py``): outside a
+training step's overlay, ``FullMeshEngine`` looks its rows up from their
+owners (``full_shard.lookup_fms``, exact), so every rank must make the
+same lookups in the same order.  The model axis (``ShardedEmbeddingEngine``
+of the reference) is not ported.
 """
 
 from __future__ import annotations
@@ -71,3 +78,33 @@ class EmbeddingEngine:
 
 
 DENSE_ENGINE = EmbeddingEngine()
+
+
+class FullMeshEngine(EmbeddingEngine):
+    """The engine of a data mesh: a full-mesh table (its rank's share of
+    rows) is looked up through the owners' exchange; every other table as
+    in ``EmbeddingEngine``."""
+
+    def __init__(self, mesh, tables: dict):
+        super().__init__()
+        self.mesh = mesh
+        self.tables = tables       # name -> (logical rows R, group size p)
+
+    def _take(self, name: str, table, ids, feature: Optional[str]):
+        if name in self.tables and name not in self.overlay:
+            from .full_shard import lookup_fms
+            R, p = self.tables[name]
+            return lookup_fms(self.mesh, table, ids, R, p)
+        return super()._take(name, table, ids, feature)
+
+
+def make_engine(cfg, mesh) -> EmbeddingEngine:
+    """The engine for ``mesh`` (None: one device)."""
+    if mesh is None:
+        return EmbeddingEngine()
+    from ..core.mesh import MODEL_AXIS_SLICE
+    if mesh.model > 1:
+        raise NotImplementedError(f"mesh_model {mesh.model}: "
+                                  f"{MODEL_AXIS_SLICE}")
+    from .full_shard import fms_tables
+    return FullMeshEngine(mesh, fms_tables(cfg, mesh.size))

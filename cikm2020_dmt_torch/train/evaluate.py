@@ -101,7 +101,8 @@ def run_eval(cfg: DMTConfig, model: BaseModel, params,
              rel_only: bool = False,
              data_iter: Optional[Iterable[Batch]] = None,
              collect_gates: bool = False, detail_file: Optional[str] = None,
-             device="cuda", model_state: Optional[dict] = None):
+             device="cuda", model_state: Optional[dict] = None,
+             mesh=None):
     """Drains an eval split on ``device``; returns (metric values, headers,
     p_clk, p_ord), the scores float32 numpy arrays over the valid rows.
 
@@ -116,7 +117,21 @@ def run_eval(cfg: DMTConfig, model: BaseModel, params,
     only).  ``model_state`` is the checkpoint's (batch norm's moving
     statistics; default a fresh model's).  The default device is the
     card: without CUDA this raises.  Pass ``device="cpu"`` for the plain
-    path."""
+    path.
+
+    With ``mesh`` (a data mesh, ``core.mesh.build_mesh``; every rank calls
+    this on the same stream) each rank scores its equal slice of every
+    batch on the mesh's device, a full-mesh table's rows come from their
+    owners (``parallel/embedding_shard.make_engine``; ``params`` may hold
+    the whole table or the rank's share), and the scores are gathered in
+    batch order; every rank returns the one-process result, and only rank
+    0 writes ``detail_file``."""
+    if mesh is not None:
+        from ..convert import shard_params
+        from ..parallel.embedding_shard import make_engine
+        device = mesh.device
+        model.engine = make_engine(cfg, mesh)
+        params = shard_params(cfg, params, mesh)
     device = check_device(device, "run_eval")
     step_fn = make_eval_step(cfg, model, rel_only, collect_gates)
     params = tree_map(lambda t: t.to(device), params)
@@ -134,12 +149,18 @@ def run_eval(cfg: DMTConfig, model: BaseModel, params,
         data_iter = prefetch(make_input_stream(
             cfg, data_path, batch_size, epochs=1, shuffle=False,
             drop_remainder=False, pad_remainder=True))
-    detail = open(detail_file, "a") if detail_file else None
+    chief = mesh is None or mesh.rank == 0
+    detail = open(detail_file, "a") if detail_file and chief else None
     try:
         for batch in data_iter:
-            out = step_fn(params, metrics, device_batch(batch, device),
-                          model_state)
+            dev_batch = device_batch(batch, device)
+            if mesh is not None:
+                dev_batch = _rank_slice(dev_batch, mesh)
+            out = step_fn(params, metrics, dev_batch, model_state)
             metrics, p_ctr, p_cvr = out[:3]
+            if mesh is not None:
+                p_ctr, p_cvr = (mesh.all_gather(p).reshape(-1)
+                                for p in (p_ctr, p_cvr))
             n_valid = int(batch["valid"].sum())
             pc = p_ctr[:n_valid].cpu().numpy()
             po = p_cvr[:n_valid].cpu().numpy()
@@ -160,6 +181,11 @@ def run_eval(cfg: DMTConfig, model: BaseModel, params,
             detail.close()
         if own_iter:
             data_iter.close()
+    if mesh is not None:
+        metrics = _sum_over_ranks(metrics, mesh)
+        if gate_total is not None:
+            gate_total = mesh.reduce_sum(
+                torch.from_numpy(gate_total).to(device)).cpu().numpy()
     headers = collector.result()
     p_clk = np.concatenate(clk_scores) if clk_scores else np.zeros(
         0, np.float32)
@@ -171,6 +197,23 @@ def run_eval(cfg: DMTConfig, model: BaseModel, params,
                      if gate_total is not None else None)
         return vals, headers, p_clk, p_ord, gate_mean
     return vals, headers, p_clk, p_ord
+
+
+def _rank_slice(batch: dict, mesh) -> dict:
+    """The rank's equal slice of every array of a batch (rows [r * B / n,
+    (r + 1) * B / n))."""
+    B = batch["valid"].shape[0]
+    if B % mesh.size:
+        raise ValueError(f"run_eval: batch of {B} rows does not split over "
+                         f"{mesh.size} ranks")
+    n = B // mesh.size
+    return {k: v[mesh.rank * n:(mesh.rank + 1) * n] for k, v in batch.items()}
+
+
+def _sum_over_ranks(metrics: dict, mesh) -> dict:
+    """The streaming metrics summed over the ranks."""
+    return tree_map(lambda t: mesh.reduce_sum(t.reshape(-1)).view(t.shape),
+                    metrics)
 
 
 _ITER_RE = re.compile(r">> iter_steps:(\d+)")

@@ -29,11 +29,19 @@ reference's: where the reference stores a table 128-lane packed
 of 128 // D logical rows is one lazy-Adam row, so a logical row that
 shares a packed row with a touched one has its moments decayed and its
 value moved with it.  ``spec.group`` is that pack factor (1 otherwise).
+
+Under a data mesh (``core/mesh.py``) each rank holds a slice of the global
+batch.  A table the plan marks ``full_mesh`` splits its rows over the ranks
+and exchanges rows and gradients with their owners
+(``parallel/full_shard.py``).  Every other lazy table stays replicated and
+takes the JAX package's global union: ``collect`` gathers every rank's ids,
+unites them, and slices this rank's elements back out, so the gradient rows
+summed over the ranks update the same rows on every rank.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable
 
 import torch
@@ -53,6 +61,12 @@ class LazyTableSpec:
     fields: tuple[tuple[str, int], ...]   # (feature, id_size)
     dim: int
     group: int = 1                        # rows updated together
+    full_mesh: bool = False               # rows split over every rank
+
+    @property
+    def rows(self) -> int:
+        """R: the table's logical rows (its largest feature's id_size)."""
+        return max(size for _, size in self.fields)
 
 
 @dataclass
@@ -76,18 +90,26 @@ class LazyOverlay:
     offsets: dict             # feature -> (offset, numel)
 
 
-def build_lazy_plan(cfg: DMTConfig) -> tuple[LazyTableSpec, ...]:
+def build_lazy_plan(cfg: DMTConfig, mesh=None) -> tuple[LazyTableSpec, ...]:
     """Tables under lazy Adam: the flag on, Adam, no dense weight decay,
     at least ``dedup_rows_threshold`` rows, and no timestamp feature (those
-    ids are re-bucketed inside the model)."""
+    ids are re-bucketed inside the model).  On a mesh, the tables that
+    ``full_shard.splits`` over its ranks are ``full_mesh``; the rest stay
+    replicated."""
+    return plan_tables(cfg, mesh.size if mesh is not None else 1)
+
+
+def plan_tables(cfg: DMTConfig, n_dev: int) -> tuple[LazyTableSpec, ...]:
+    """``build_lazy_plan`` over ``n_dev`` ranks."""
     if not (cfg.lazy_adam and cfg.optimizer.lower() == "adam"
             and cfg.wnd_wd <= 1e-5):
         return ()
+    from ..parallel.full_shard import splits
     ts_feats = frozenset(cfg.attention_ts)
     by_table: dict[str, list] = {}
     for spec in cfg.embeddings:
         by_table.setdefault(spec.table, []).append(spec)
-    return tuple(
+    specs = tuple(
         LazyTableSpec(name, tuple((s.feature, s.id_size) for s in specs),
                       specs[0].dim,
                       pack_factor(specs[0].dim)
@@ -96,6 +118,7 @@ def build_lazy_plan(cfg: DMTConfig) -> tuple[LazyTableSpec, ...]:
         for name, specs in by_table.items()
         if max(s.id_size for s in specs) >= cfg.dedup_rows_threshold
         and not any(s.feature in ts_feats for s in specs))
+    return tuple(replace(s, full_mesh=splits(cfg, s, n_dev)) for s in specs)
 
 
 def budget(n: int, budget_div: int) -> int:
@@ -103,18 +126,34 @@ def budget(n: int, budget_div: int) -> int:
     return ((max(256, n // max(1, budget_div)) + 7) // 8) * 8
 
 
-def collect(spec: LazyTableSpec, batch: dict, table: torch.Tensor,
-            budget_div: int) -> LazyCollection:
-    R, p = table.shape[0], spec.group
+def site_ids(spec: LazyTableSpec, batch: dict) -> tuple[list, dict]:
+    """The flat int64 ids of each feature of the table, and each feature's
+    (offset, numel) in their concatenation."""
     parts, offsets, off = [], {}, 0
     for feature, _ in spec.fields:
         flat = batch[feature + IDS].reshape(-1).long()
         offsets[feature] = (off, flat.numel())
         off += flat.numel()
         parts.append(flat)
-    ids = torch.cat(parts).clamp(0, R - 1)
+    return parts, offsets
+
+
+@dataclass
+class Union:
+    """The sorted, budgeted id union of one table (``union``)."""
+    groups: torch.Tensor      # [U] ascending distinct groups, sentinels >= G
+    uids: torch.Tensor        # [U * group] their rows
+    pos: torch.Tensor         # [N] row slot of each element (overflow: last)
+    order: torch.Tensor       # [N] element of each sorted position
+    seg_sorted: torch.Tensor  # [N] slot of each sorted position
+    overflow: torch.Tensor    # distinct groups past the budget
+
+
+def union(ids: torch.Tensor, R: int, p: int, U: int) -> Union:
+    """The union of ``ids`` (clamped into [0, R)) in groups of ``p`` rows,
+    compacted into ``U`` group slots; the unused tail holds the distinct
+    out-of-range sentinels G, G + 1, ... (G = ceil(R / p))."""
     n = ids.numel()
-    U = budget(n, budget_div)
     s, order = torch.sort(ids, stable=True)
     grp = s // p
     first = torch.ones_like(s, dtype=torch.bool)
@@ -122,21 +161,43 @@ def collect(spec: LazyTableSpec, batch: dict, table: torch.Tensor,
     seg = torch.cumsum(first, 0) - 1
     # distinct groups ascend: sorting first-of-run groups among sentinels
     # puts exactly the distinct groups first
-    groups = -(-R // p)
-    compact = torch.sort(torch.where(first, grp,
-                                     torch.full_like(grp, groups)))[0]
-    ug = torch.full((U,), groups, dtype=torch.int64, device=ids.device)
+    G = -(-R // p)
+    compact = torch.sort(torch.where(first, grp, torch.full_like(grp, G)))[0]
+    ug = torch.full((U,), G, dtype=torch.int64, device=ids.device)
     ug[:min(U, n)] = compact[:U]
-    ug = torch.where(ug >= groups, groups + torch.arange(U, device=ids.device),
-                     ug)
+    ug = torch.where(ug >= G, G + torch.arange(U, device=ids.device), ug)
     uids = (ug[:, None] * p + torch.arange(p, device=ids.device)).reshape(-1)
     seg_sorted = torch.where(seg < U, seg * p + s % p,
                              torch.full_like(seg, U * p))
     pos = torch.empty_like(seg_sorted).scatter_(0, order, seg_sorted)
-    rows = table.index_select(0, uids.clamp(max=R - 1))
     overflow = (first.sum() - U).clamp(min=0)
-    return LazyCollection(uids, pos, rows, offsets, R, overflow, order,
-                          seg_sorted, ids)
+    return Union(ug, uids, pos, order, seg_sorted, overflow)
+
+
+def collect(spec: LazyTableSpec, batch: dict, table: torch.Tensor,
+            budget_div: int, mesh=None) -> LazyCollection:
+    """The table's union over the batch, its rows gathered.  With ``mesh``
+    (a replicated table on a data mesh) the union is the global batch's:
+    every rank's ids are gathered and united (the budget is the global
+    one, as in the JAX package), and the collection keeps this rank's
+    elements, sorted by slot."""
+    R, p = table.shape[0], spec.group
+    parts, offsets = site_ids(spec, batch)
+    local = torch.cat(parts).clamp(0, R - 1)
+    if mesh is None:
+        u = union(local, R, p, budget(local.numel(), budget_div))
+        pos, order, seg_sorted = u.pos, u.order, u.seg_sorted
+    else:
+        # the union (and its budget) does not depend on the ids' order
+        n = local.numel()
+        ids = mesh.all_gather(local).reshape(-1)
+        u = union(ids, R, p, budget(ids.numel(), budget_div))
+        pos = u.pos[mesh.rank * n:(mesh.rank + 1) * n]
+        order = torch.sort(pos, stable=True)[1]
+        seg_sorted = pos[order]
+    rows = table.index_select(0, u.uids.clamp(max=R - 1))
+    return LazyCollection(u.uids, pos, rows, offsets, R, u.overflow, order,
+                          seg_sorted, local)
 
 
 def make_overlay(col: LazyCollection, rows_diff: torch.Tensor,

@@ -1,5 +1,6 @@
-"""Single-device training step (``cikm2020_dmt_tpu/train/loop.py``
-``step_fn`` and its ``_lazy_step``), for every model of the zoo.
+"""The training step (``cikm2020_dmt_tpu/train/loop.py`` ``step_fn`` and
+its ``_lazy_step``), for every model of the zoo, on one device or on a
+data mesh of one process per device (``core/mesh.py``).
 
 One ``Trainer.train_step``:
 
@@ -28,6 +29,30 @@ buffers and copied to the card on a side stream two batches ahead
 (``device_batch``, ``device_prefetch``), a checkpoint with its DONE marker,
 a result-file block and a summary line every ``validate_step`` steps, and
 resume or warm start.
+
+On a data mesh (``Trainer(cfg, mesh=...)``, model axis 1) each rank takes
+its own slice of the global batch (``batch_size`` examples, its share of
+the files), and the step is the JAX package's on the global batch:
+
+- each rank differentiates its local mean loss divided by the number of
+  data ranks (the JAX loss is the global batch's mean), and one
+  ``all_reduce`` sums the dense gradients with the gradient rows of the
+  replicated lazy tables, whose union is the global batch's
+  (``lazy.collect``);
+- a full-mesh table (``parallel/full_shard.py``) is split by rows over the
+  ranks: the rank holds its share of the rows and moments, fetches its
+  union's rows from their owners and pushes its gradient rows back;
+- batch norm takes the global batch's statistics (``core.mesh.active``);
+  rank ``k > 0`` seeds its dropout generator with ``(seed + 1, step, k)``,
+  so every dropout draw, the fused block's seed included, differs by rank;
+- the loss, ``lazy_overflow`` and the streaming metrics stay per rank
+  and are reduced where they are read (log, save, ``train``'s result);
+- a checkpoint is the one-process format: rank 0 writes the state gathered
+  from the ranks (``convert.gather_state``), and every rank restores the
+  whole state and keeps its share (``convert.shard_state``), so a
+  checkpoint restores on any number of ranks;
+- the ranks agree at each step boundary on a signal or the end of a
+  rank's data, so none is left waiting in a collective.
 """
 
 from __future__ import annotations
@@ -42,6 +67,8 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from ..convert import gather_state, shard_params, shard_state
+from ..core import mesh as meshlib
 from ..core.checkpoint import CheckpointManager
 from ..core.config import DMTConfig
 from ..core.logging import SummaryWriter, Throughput, log_line, log_to_file
@@ -50,6 +77,7 @@ from ..data.pipeline import Batch
 from ..metrics.streaming import (task_metrics_init, task_metrics_update,
                                  task_metrics_values)
 from ..models.zoo import build_model
+from ..parallel.full_shard import collect_fms, fms_adam_update
 from .lazy import build_lazy_plan, collect, lazy_adam_rows, make_overlay
 from .losses import l2_regularization, model_loss, scores_from_logits
 from .optim import make_optimizer, piecewise_constant
@@ -107,15 +135,17 @@ class _StepSignals:
     updates the lazy tables in place, so a state cut in the middle of one
     is a state no step produced.  A signal that arrives during a step is
     raised when it ends (``step_done``).  Outside the main thread nothing
-    is installed."""
+    is installed.  With ``defer`` (a data mesh) a signal is only recorded:
+    the ranks agree on it at the next step boundary (``raise_pending``)."""
 
-    def __init__(self):
+    def __init__(self, defer: bool = False):
+        self.defer = defer
         self.in_step = False
         self.pending: Optional[int] = None
         self.previous: dict = {}
 
     def _handle(self, signum, frame):
-        if self.in_step:
+        if self.in_step or self.defer:
             self.pending = signum
         else:
             raise KeyboardInterrupt(f"signal {signum}")
@@ -130,9 +160,13 @@ class _StepSignals:
 
     def step_done(self) -> None:
         self.in_step = False
-        if self.pending is not None:
-            sig, self.pending = self.pending, None
-            raise KeyboardInterrupt(f"signal {sig}")
+        if self.pending is not None and not self.defer:
+            self.raise_pending()
+
+    def raise_pending(self) -> None:
+        sig, self.pending = self.pending, None
+        raise KeyboardInterrupt(f"signal {sig}" if sig is not None
+                                else "signal on another rank")
 
     def __exit__(self, *exc):
         for sig, handler in self.previous.items():
@@ -140,12 +174,13 @@ class _StepSignals:
         return False
 
 
-def dropout_seed(seed: int, step: int) -> int:
+def dropout_seed(seed: int, step: int, data_index: int = 0) -> int:
     """The seed of step ``step``'s dropout generator, from ``(seed + 1,
-    step)`` (the JAX loop folds the step into one key): a run resumed at
-    step k draws the masks an uninterrupted run draws at step k."""
-    return int(np.random.SeedSequence([seed + 1, step])
-               .generate_state(1, np.uint64)[0])
+    step)`` (the JAX loop folds the step into one key), and ``data_index``
+    after them on data rank k > 0: a run resumed at step k draws the masks
+    an uninterrupted run draws at step k."""
+    key = [seed + 1, step] + ([data_index] if data_index else [])
+    return int(np.random.SeedSequence(key).generate_state(1, np.uint64)[0])
 
 
 def _flatten(tree, out):
@@ -176,11 +211,21 @@ def _rebuild(tree, it):
 
 
 class Trainer:
-    """Trains a model of the zoo on one device.  The default device is
-    the card: without CUDA the constructor raises instead of training on
-    the CPU.  Pass ``device="cpu"`` for the plain PyTorch path."""
+    """Trains a model of the zoo on one device, or as one rank of a data
+    ``mesh`` (``core.mesh.build_mesh``; the rank's device is the mesh's).
+    The default device is the card: without CUDA the constructor raises
+    instead of training on the CPU.  Pass ``device="cpu"`` for the plain
+    PyTorch path."""
 
-    def __init__(self, cfg: DMTConfig, device="cuda"):
+    def __init__(self, cfg: DMTConfig, device="cuda", mesh=None):
+        if mesh is not None:
+            if mesh.model > 1:
+                raise NotImplementedError(
+                    f"Trainer: mesh_model {mesh.model}: "
+                    f"{meshlib.MODEL_AXIS_SLICE}")
+            device = mesh.device
+        self.mesh = mesh
+        self.chief = mesh is None or mesh.rank == 0
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -193,10 +238,16 @@ class Trainer:
                 "which would change the trained values")
         self.cfg = cfg
         self.model = build_model(cfg)
+        if mesh is not None:
+            from ..parallel.embedding_shard import make_engine
+            self.model.engine = make_engine(cfg, mesh)
         self.optimizer = make_optimizer(cfg)
         # mlp reads no table, whatever tables the config lists
-        self.lazy_plan = build_lazy_plan(cfg) if self.model.has_tables \
+        self.lazy_plan = build_lazy_plan(cfg, mesh) if self.model.has_tables \
             else ()
+        # full-mesh tables: name -> (logical rows, group size)
+        self.full_mesh = {t.name: (t.rows, t.group) for t in self.lazy_plan
+                          if t.full_mesh}
         self.schedule = piecewise_constant(cfg.step_boundary,
                                            cfg.learning_rate)
         self.ckpt = CheckpointManager(cfg.model_path)
@@ -215,10 +266,14 @@ class Trainer:
                       if k not in lazy}
         return out
 
-    def init_state(self, gen: torch.Generator) -> dict:
+    def init_state(self, gen: torch.Generator, whole: bool = False) -> dict:
         """Random params from ``gen`` (on the trainer's device), a fresh
-        model state and zero optimizer state."""
+        model state and zero optimizer state.  On a mesh every rank draws
+        the same params from the same ``gen`` and keeps its share of the
+        full-mesh tables, unless ``whole``."""
         params = self.model.init(gen)
+        if self.mesh is not None and not whole:
+            params = shard_params(self.cfg, params, self.mesh)
         state = {"params": params,
                  "model_state": self.model.init_state(params),
                  "opt": self.optimizer.init(self._dense(params)),
@@ -243,9 +298,15 @@ class Trainer:
         if any(k.startswith("__packed_") for k in batch):
             batch = self.unpack_device_batch(batch, self._pack_layout)
         params = state["params"]
-        cols = {t.name: collect(t, batch, params["emb"][t.name],
-                                cfg.dedup_budget_div)
-                for t in self.lazy_plan}
+        mesh = self.mesh
+        cols = {}
+        for t in self.lazy_plan:
+            table = params["emb"][t.name]
+            cols[t.name] = (
+                collect_fms(t, batch, table, mesh, cfg.dedup_budget_div,
+                            self.full_mesh[t.name][0]) if t.full_mesh
+                else collect(t, batch, table, cfg.dedup_budget_div,
+                             mesh=mesh))
         dense = self._dense(params)
         leaves = [t.detach().requires_grad_() for t in _flatten(dense, [])]
         dense_d = _rebuild(dense, iter(leaves))
@@ -257,25 +318,35 @@ class Trainer:
             for name in cols:
                 full["emb"][name] = params["emb"][name]
         engine = self.model.engine
+        # a full-mesh table has no exact-overflow fallback (JAX's neither)
         engine.overlay = {
             name: make_overlay(c, rows_d[name],
                                table=(params["emb"][name]
-                                      if cfg.lazy_overflow_exact else None))
+                                      if cfg.lazy_overflow_exact
+                                      and name not in self.full_mesh
+                                      else None))
             for name, c in cols.items()}
         try:
-            out, model_state = self.model.apply(
-                full, batch, train=True, gen=gen,
-                state=state.get("model_state"), return_state=True)
-            loss = model_loss(cfg, self.model.num_tasks, out, full, batch,
-                              train=True)
-            if cfg.wnd_wd > 1e-5:   # the reference's gate
-                loss = loss + l2_regularization(cfg, full, batch)
+            with meshlib.active(mesh):
+                out, model_state = self.model.apply(
+                    full, batch, train=True, gen=gen,
+                    state=state.get("model_state"), return_state=True)
+                loss = model_loss(cfg, self.model.num_tasks, out, full,
+                                  batch, train=True)
+                if cfg.wnd_wd > 1e-5:   # the reference's gate
+                    loss = loss + l2_regularization(cfg, full, batch, mesh)
         finally:
             engine.overlay = {}
         wrt = leaves + list(rows_d.values())
-        grads = torch.autograd.grad(loss, wrt, allow_unused=True)
+        # the global loss is the mean of the data ranks' local means
+        objective = loss if mesh is None else loss * (1.0 / mesh.data)
+        grads = torch.autograd.grad(objective, wrt, allow_unused=True)
         grads = [torch.zeros_like(w) if g is None else g
                  for w, g in zip(wrt, grads)]
+        if mesh is not None:
+            grads = self._sum_over_ranks(
+                grads, [True] * len(leaves)
+                + [name not in self.full_mesh for name in rows_d])
         g_dense = _rebuild(dense, iter(grads[:len(leaves)]))
         g_rows = dict(zip(rows_d, grads[len(leaves):]))
 
@@ -287,15 +358,24 @@ class Trainer:
             if cols:
                 new_params["emb"] = dict(new_dense["emb"])
             lazy_opt = {}
+            overflow = state["lazy_overflow"]
             for name, c in cols.items():
-                table, mv = lazy_adam_rows(
-                    params["emb"][name], state["lazy_opt"][name]["mv"],
-                    c.uids, c.rows, g_rows[name], count, self.schedule)
+                table, mv = params["emb"][name], state["lazy_opt"][name]["mv"]
+                if name in self.full_mesh:
+                    table, mv = fms_adam_update(
+                        mesh, table, mv, c, g_rows[name], count,
+                        self.schedule, self.full_mesh[name][1],
+                        cfg.fms_grad_bf16)
+                    overflow = overflow + c.overflow
+                else:
+                    table, mv = lazy_adam_rows(table, mv, c.uids, c.rows,
+                                               g_rows[name], count,
+                                               self.schedule)
+                    # a replicated table's union is global: rank 0 counts
+                    if self.chief:
+                        overflow = overflow + c.overflow
                 new_params["emb"][name] = table
                 lazy_opt[name] = {"mv": mv}
-            overflow = state["lazy_overflow"]
-            for c in cols.values():
-                overflow = overflow + c.overflow
             new_state = {"params": new_params, "model_state": model_state,
                          "opt": opt, "step": count, "lazy_opt": lazy_opt,
                          "lazy_overflow": overflow}
@@ -304,6 +384,59 @@ class Trainer:
                 metrics, mask=batch["mask"], p_ctr=p_ctr, p_cvr=p_cvr,
                 loss=loss.detach(), weights=batch["valid"])
         return new_state, metrics, loss.detach()
+
+    def _sum_over_ranks(self, grads: list, summed: list) -> list:
+        """The gradients flagged in ``summed`` added up over the ranks by
+        one float32 ``all_reduce`` (each cast back to its type); the others
+        (a full-mesh table's union rows, pushed to their owners) as they
+        are."""
+        idx = [i for i, f in enumerate(summed) if f]
+        if not idx:
+            return grads
+        flat = torch.cat([grads[i].reshape(-1).float() for i in idx])
+        self.mesh.all_reduce(flat)
+        out = list(grads)
+        off = 0
+        for i in idx:
+            n = grads[i].numel()
+            out[i] = flat[off:off + n].view(grads[i].shape).to(grads[i].dtype)
+            off += n
+        return out
+
+    def reduce_metrics(self, metrics: dict) -> dict:
+        """The streaming metrics summed over the ranks (one ``all_reduce``;
+        every rank calls it), or ``metrics`` without a mesh."""
+        if self.mesh is None:
+            return metrics
+        leaves = _flatten(metrics, [])
+        flat = self.mesh.all_reduce(
+            torch.cat([t.reshape(-1).float() for t in leaves]))
+        parts, off = [], 0
+        for t in leaves:
+            parts.append(flat[off:off + t.numel()].view(t.shape).to(t.dtype))
+            off += t.numel()
+        return _rebuild(metrics, iter(parts))
+
+    def reduce_loss(self, loss: torch.Tensor) -> float:
+        """The global batch's loss: the mean of the ranks' local means."""
+        if self.mesh is None:
+            return float(loss)
+        return float(self.mesh.reduce_sum(loss.float().reshape(1))[0]
+                      / self.mesh.data)
+
+    def lazy_overflow(self, state: dict) -> int:
+        """``lazy_overflow`` summed over the ranks."""
+        ovf = state["lazy_overflow"]
+        if self.mesh is None:
+            return int(ovf)
+        return int(self.mesh.reduce_sum(ovf.reshape(1))[0])
+
+    def whole_state(self, state: dict) -> dict:
+        """The one-process train state of a rank's ``state`` (every rank
+        calls it), or ``state`` without a mesh."""
+        if self.mesh is None:
+            return state
+        return gather_state(self.cfg, state, self.mesh)
 
     # ------------------------------------------------------------------
     def device_batch(self, batch: Batch, staging: Optional[Staging] = None,
@@ -430,17 +563,35 @@ class Trainer:
         Chrome trace.  Afterwards ``last_step`` and ``state`` hold the step
         reached and the train state."""
         cfg = self.cfg
+        mesh = self.mesh
         data_path = data_path or cfg.train_data_path
         max_steps = max_steps if max_steps is not None else cfg.max_iter_step
 
         start_step = 0
-        if resume_step is not None and self.ckpt.has_step(resume_step):
-            state = self.ckpt.restore(resume_step, self.device)
+        restore = resume_step is not None and self.ckpt.has_step(resume_step)
+        if mesh is not None:
+            # rank 0's checkpoint directory decides, and every rank must
+            # read the same checkpoint: ranks that cannot all stop
+            restore, = mesh.from_chief(restore)
+            unseen, = mesh.agree(restore
+                                 and not self.ckpt.has_step(resume_step))
+            if unseen:
+                raise RuntimeError(
+                    f"model.ckpt-{resume_step} is complete in rank 0's "
+                    f"model_path but missing on some rank's "
+                    f"({cfg.model_path} here): every rank restores the "
+                    "whole checkpoint, so the ranks need one shared "
+                    "model_path")
+        if restore:
+            # every rank restores the whole state and keeps its share
+            state = self.ckpt.restore(resume_step,
+                                      "cpu" if mesh else self.device)
             start_step = resume_step
-            log_line(f"resumed from model.ckpt-{resume_step}")
+            self._log(f"resumed from model.ckpt-{resume_step}")
         else:
             state = self.init_state(
-                torch.Generator(device=self.device).manual_seed(cfg.seed))
+                torch.Generator(device=self.device).manual_seed(cfg.seed),
+                whole=True)
             if cfg.update_emb:
                 # warm-start pretrained tables (reference
                 # run_dnn.py:298-299)
@@ -448,57 +599,83 @@ class Trainer:
                                         warm_start_embeddings)
                 state["params"] = warm_start_embeddings(
                     state["params"], parse_update_emb(cfg.update_emb))
-                log_line(f"warm-started embeddings: {cfg.update_emb}")
+                self._log(f"warm-started embeddings: {cfg.update_emb}")
+        if mesh is not None:
+            state = shard_state(cfg, state, mesh)
 
         own_iter = data_iter is None
         if own_iter:
+            shards = {}
+            if mesh is not None:
+                # each data rank reads its own files (JAX: per process)
+                files = pipeline.expand_files(data_path)
+                if len(files) < mesh.data:
+                    raise ValueError(
+                        f"{len(files)} input files for {mesh.data} data "
+                        "ranks: each rank reads files of its own")
+                shards = dict(num_shards=mesh.data,
+                              shard_index=mesh.data_index)
             # training never reads the row headers
             data_iter = pipeline.prefetch(make_input_stream(
                 cfg, data_path, cfg.batch_size, epochs=cfg.epoch_num,
-                shuffle=True, with_headers=False))
+                shuffle=True, with_headers=False, **shards))
 
         metrics = task_metrics_init(self.device)
         meter = Throughput()
         summary = (SummaryWriter(cfg.summary_path, "train")
-                   if cfg.summary_path else None)
+                   if cfg.summary_path and self.chief else None)
         gen = torch.Generator(device=self.device)
+        data_index = mesh.data_index if mesh is not None else 0
+        ranks = mesh.data if mesh is not None else 1
         profile_dir = profile_dir or os.environ.get("DMT_PROFILE_DIR")
         prof = None
         step = start_step
+        self._saved_step = start_step
         eps = 0.0
-        signals = _StepSignals()
+        signals = _StepSignals(defer=mesh is not None)
         try:
             with signals:
-                for batch, dev_batch in self.device_prefetch(data_iter):
-                    if step >= max_steps:
+                batches = self.device_prefetch(data_iter)
+                while step < max_steps:
+                    item = next(batches, None)
+                    if mesh is not None:
+                        # agreed at the boundary: a signal on any rank, or
+                        # any rank's data at its end, stops every rank
+                        end, sig = mesh.agree(item is None,
+                                              signals.pending is not None)
+                        if sig:
+                            signals.raise_pending()
+                        if end:
+                            break
+                    elif item is None:
                         break
+                    batch, dev_batch = item
                     if profile_dir and step - start_step == profile_steps[0]:
                         prof = self._start_profile()
                     if prof is not None and \
                             step - start_step == profile_steps[1]:
                         self._stop_profile(prof, profile_dir, step)
                         prof = None
-                    gen.manual_seed(dropout_seed(cfg.seed, step))
+                    gen.manual_seed(dropout_seed(cfg.seed, step, data_index))
                     signals.in_step = True
                     state, metrics, loss = self.train_step(
                         state, metrics, dev_batch, gen)
                     step += 1
                     signals.step_done()
-                    step_time, eps = meter.tick(batch.size)
+                    step_time, eps = meter.tick(batch.size * ranks)
                     if step % log_every == 0 or step == max_steps:
                         self._log_step(step, state, metrics, loss, eps,
                                        step_time)
                     if step % cfg.validate_step == 0 or step == max_steps:
-                        self._save(state, step, metrics)
+                        vals = self._save(state, step, metrics)
                         if summary is not None:
-                            vals = task_metrics_values(metrics)
                             vals["examples_per_sec"] = eps
                             summary.scalars(step, vals)
         except KeyboardInterrupt:
             # an interrupted run resumes from --model_ckpt model.ckpt-<step>
-            if step != start_step and not self.ckpt.has_step(step):
-                log_line(f"interrupted at step {step}; saving emergency "
-                         "ckpt")
+            if step != self._saved_step:
+                self._log(f"interrupted at step {step}; saving emergency "
+                          "ckpt")
                 self._save(state, step, metrics)
             raise
         finally:
@@ -506,23 +683,30 @@ class Trainer:
                 self._stop_profile(prof, profile_dir, step)
             if own_iter:
                 data_iter.close()
-        if step != start_step and not self.ckpt.has_step(step):
+        if step != self._saved_step:
             self._save(state, step, metrics)
         self.last_step = step
         self.state = state
-        return task_metrics_values(metrics)
+        return task_metrics_values(self.reduce_metrics(metrics))
+
+    def _log(self, msg: str) -> None:
+        """A log line, from rank 0 only."""
+        if self.chief:
+            log_line(msg)
 
     def _log_step(self, step, state, metrics, loss, eps, step_time) -> None:
         """The JAX loop's metric line; the only place the loop waits for
-        the card (``loss``, ``lazy_overflow``, the metrics)."""
-        vals = task_metrics_values(metrics)
+        the card (``loss``, ``lazy_overflow``, the metrics, reduced over
+        the ranks)."""
+        vals = task_metrics_values(self.reduce_metrics(metrics))
+        overflow = self.lazy_overflow(state)
+        loss = self.reduce_loss(loss)
         ovf = ""
-        overflow = int(state["lazy_overflow"])
         if overflow > 0:
             ovf = (f" | LAZY-OVERFLOW {overflow} id-grads skipped (lower "
                    "dedup_budget_div)")
-        log_line(
-            f"step {step} | loss {float(loss):.6f} | "
+        self._log(
+            f"step {step} | loss {loss:.6f} | "
             f"clk p/r/auc {vals['click_precision']:.4f}/"
             f"{vals['click_recall']:.4f}/{vals['click_auc']:.4f} | "
             f"ord p/r/auc {vals['order_precision']:.4f}/"
@@ -542,19 +726,38 @@ class Trainer:
             torch.cuda.synchronize(self.device)
         prof.stop()
         os.makedirs(profile_dir, exist_ok=True)
-        path = os.path.join(profile_dir, f"train-step{step}.trace.json")
+        rank = f"-rank{self.mesh.rank}" if self.mesh is not None else ""
+        path = os.path.join(profile_dir,
+                            f"train-step{step}{rank}.trace.json")
         prof.export_chrome_trace(path)
         log_line(f"profiler trace written to {path}")
 
-    def _save(self, state: dict, step: int, metrics) -> None:
+    def _save(self, state: dict, step: int, metrics) -> dict:
         """``model.ckpt-{step}`` with its DONE marker, and the train
-        metrics appended to ``cfg.train_result_path``."""
+        metrics appended to ``cfg.train_result_path``; returns the metric
+        values.  On a mesh rank 0 writes the gathered state, and the DONE
+        marker follows a barrier (every rank calls this)."""
         t0 = time.perf_counter()
-        self.ckpt.save(step, state)
+        if self.mesh is None:
+            self.ckpt.save(step, state)
+        else:
+            whole = gather_state(self.cfg, state, self.mesh)
+            if self.chief:
+                self.ckpt.write(step, whole)
+            del whole
+            self.mesh.barrier()
+            if self.chief:
+                self.ckpt.mark_done(step)
+            self.mesh.barrier()
         self.save_seconds[step] = time.perf_counter() - t0
-        vals = task_metrics_values(metrics)
-        lines = [f">> iter_steps:{step}"] + [
-            f"train_{k}:{v}" for k, v in vals.items()]
-        log_to_file("\n".join(lines), self.cfg.train_result_path)
-        log_line(f"saved model.ckpt-{step} (+DONE marker) in "
-                 f"{self.save_seconds[step]:.2f}s")
+        # this run's last save: the ranks decide on the final save from it,
+        # never from their view of the filesystem
+        self._saved_step = step
+        vals = task_metrics_values(self.reduce_metrics(metrics))
+        if self.chief:
+            lines = [f">> iter_steps:{step}"] + [
+                f"train_{k}:{v}" for k, v in vals.items()]
+            log_to_file("\n".join(lines), self.cfg.train_result_path)
+        self._log(f"saved model.ckpt-{step} (+DONE marker) in "
+                  f"{self.save_seconds[step]:.2f}s")
+        return vals

@@ -190,12 +190,15 @@ def model_loss(cfg: DMTConfig, num_tasks: int, out, params: dict,
     return single_task_loss(cfg, out, mask, batch.get("label"), train=train)
 
 
-def l2_regularization(cfg: DMTConfig, params: dict, batch: dict
-                      ) -> torch.Tensor:
+def l2_regularization(cfg: DMTConfig, params: dict, batch: dict,
+                      mesh=None) -> torch.Tensor:
     """``0.5 * wnd_wd * sum(w^2)`` over every dense kernel (a ``"w"``
     leaf), plus ``l2_emb_lambda / batch_size`` times half the squared norm
     of each table row the batch touches, counted once per row (a presence
-    vector per table; ids outside a table's rows are dropped)."""
+    vector per table; ids outside a table's rows are dropped).  On a data
+    ``mesh`` (replicated tables) the presence is the global batch's: one
+    max-``all_reduce`` of the ranks' vectors, so each rank's term is the
+    whole batch's, as the JAX term over the sharded batch."""
     from ..data.pipeline import IDS
 
     reg = torch.zeros((), dtype=torch.float32)
@@ -225,6 +228,10 @@ def l2_regularization(cfg: DMTConfig, params: dict, batch: dict
             keep = (ids >= 0) & (ids < presence.shape[0])
             presence = presence.index_fill(0, ids[keep], 1.0)
             touched[spec.table] = presence
+        if mesh is not None and mesh.size > 1 and touched:
+            flat = mesh.all_reduce(torch.cat(list(touched.values())), "max")
+            touched = dict(zip(touched, flat.split(
+                [v.shape[0] for v in touched.values()])))
         total = sum(0.5 * (presence * emb[name].float().square().sum(-1))
                     .sum() for name, presence in touched.items())
         reg = reg + total * cfg.l2_emb_lambda / cfg.batch_size

@@ -27,13 +27,18 @@ def _imported_modules(path: Path):
 
 
 def _port_sources():
+    # the spawned ranks of the mesh tests import their module by name
     return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-            + sorted((ROOT / "scripts").glob("*torch*.py")))
+            + sorted((ROOT / "scripts").glob("*torch*.py"))
+            + sorted((ROOT / "tests").glob("torch_*workers.py")))
 
 
 def test_port_sources_found():
     names = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
     assert "cikm2020_dmt_torch/ops/block.py" in names
+    assert "cikm2020_dmt_torch/core/mesh.py" in names
+    assert "cikm2020_dmt_torch/parallel/full_shard.py" in names
+    assert "tests/torch_mesh_workers.py" in names
     assert "chip_smoke.py" in names
 
 

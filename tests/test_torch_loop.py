@@ -41,6 +41,7 @@ from cikm2020_dmt_torch.cli import args, train as cli_train  # noqa: E402
 from cikm2020_dmt_torch.convert import train_state_from_jax  # noqa: E402
 from cikm2020_dmt_torch.core import checkpoint  # noqa: E402
 from cikm2020_dmt_torch.core.config import DMTConfig  # noqa: E402
+from cikm2020_dmt_torch.core.mesh import build_mesh  # noqa: E402
 from cikm2020_dmt_torch.data import native, pipeline  # noqa: E402
 from cikm2020_dmt_torch.metrics.streaming import task_metrics_init  # noqa: E402
 from cikm2020_dmt_torch.train import warmstart  # noqa: E402
@@ -389,7 +390,14 @@ def test_cli_train_then_resume(shards, tmp_path):
 
 
 def test_num_processes_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="multi-GPU is not ported"):
+    """Several processes run (``tests/test_torch_mesh*.py``); what still
+    raises is the model axis (``mesh_model > 1``), and ``--num_processes``
+    without this process's id."""
+    cfg = dataclasses.replace(DMTConfig.from_ini(
+        str(ROOT / "conf" / "dmt.conf")), mesh_model=2)
+    with pytest.raises(NotImplementedError, match="model axis"):
+        build_mesh(cfg, world=2, device="cpu", rank=0)
+    with pytest.raises(ValueError, match="process_id"):
         cli_train.main(["--conf_file", str(ROOT / "conf" / "dmt.conf"),
                         "--num_processes", "2", "--device", "cpu"])
     assert args.ckpt_step("model.ckpt-17") == jargs.ckpt_step(
