@@ -150,29 +150,75 @@ def train_state_from_jax(cfg: DMTConfig, state, device="cpu") -> dict:
 
 
 # ---------------------------------------------------------------------------
-# A train state on a data mesh
+# A train state on a mesh
 # ---------------------------------------------------------------------------
+
+
+def _split_leaves(cfg: DMTConfig, mesh) -> dict:
+    """Path -> (R, p, lo, hi) of each model-split table of a param tree
+    (``("emb", name)`` or ``("bias_net", "emb", name)``): its logical rows,
+    group size and this rank's share [lo, hi)."""
+    from .parallel.embedding_shard import model_split_tables
+    from .parallel.full_shard import share_rows
+    out = {}
+    for name, (R, p) in model_split_tables(cfg, mesh.size,
+                                           mesh.model).items():
+        path = (("bias_net", "emb", name[5:]) if name.startswith("bias:")
+                else ("emb", name))
+        out[path] = (R, p) + share_rows(R, p, mesh.model, mesh.model_index)
+    return out
+
+
+def _at(tree: dict, path: tuple, fn, info) -> dict:
+    """A copy of ``tree`` with ``fn(leaf, *info)`` at ``path`` where it
+    holds one (the dicts on the way copied), else ``tree``."""
+    node = tree.get(path[0]) if isinstance(tree, dict) else None
+    if node is None:
+        return tree
+    out = dict(tree)
+    out[path[0]] = (fn(node, *info) if len(path) == 1
+                    else _at(node, path[1:], fn, info))
+    return out
+
+
+def _map_paths(tree: dict, paths: dict, fn) -> dict:
+    """``_at`` for each path -> info of ``paths``."""
+    for path, info in paths.items():
+        tree = _at(tree, path, fn, info)
+    return tree
+
+
+def _param_trees(state: dict) -> list:
+    """The keys of ``state["opt"]`` that hold a param-shaped tree (Adam's
+    m and v, FTRL's n and z, ...)."""
+    return [k for k, v in state.get("opt", {}).items()
+            if isinstance(v, dict) and ("emb" in v or "bias_net" in v)]
 
 
 def shard_params(cfg: DMTConfig, params: dict, mesh) -> dict:
     """Params on ``mesh.device`` with each full-mesh table cut to this
-    rank's rows (``full_shard.share_rows``); a table already cut to them
-    stays as it is."""
+    rank's rows (``full_shard.share_rows``) and each model-split table to
+    its model index's rows; a table already cut stays as it is.  JAX
+    params held on a (d, m) mesh convert with ``params_from_jax`` (the
+    whole arrays) and then this."""
     from .parallel.full_shard import fms_tables, share_rows
     out = tree_map(lambda t: t.to(mesh.device), params)
     for name, (R, p) in fms_tables(cfg, mesh.size).items():
         if out["emb"][name].shape[0] == R:
             lo, hi = share_rows(R, p, mesh.size, mesh.rank)
             out["emb"][name] = out["emb"][name][lo:hi].clone()
-    return out
+    return _map_paths(out, _split_leaves(cfg, mesh),
+                      lambda t, R, p, lo, hi:
+                      t[lo:hi].clone() if t.shape[0] == R else t)
 
 
 def shard_state(cfg: DMTConfig, state: dict, mesh) -> dict:
     """A whole train state (any device) -> this rank's share on
     ``mesh.device``: each full-mesh table's rows ``share_rows`` and the
-    same rows of its [2, R, D] moments, ``lazy_overflow`` with rank 0 only
-    (the ranks' counts are summed where they are read), every other leaf
-    whole."""
+    same rows of its [2, R, D] moments; each model-split table's rows of
+    its model index, with the same rows of its dense optimizer state or of
+    its lazy moments; ``lazy_overflow`` with rank 0 only (the ranks'
+    counts are summed where they are read); every other leaf whole."""
     from .parallel.full_shard import fms_tables, share_rows
     out = tree_map(lambda t: t.to(mesh.device), state)
     for name, (R, p) in fms_tables(cfg, mesh.size).items():
@@ -181,16 +227,60 @@ def shard_state(cfg: DMTConfig, state: dict, mesh) -> dict:
         if name in out.get("lazy_opt", {}):
             out["lazy_opt"][name]["mv"] = \
                 out["lazy_opt"][name]["mv"][:, lo:hi].clone()
+    split = _split_leaves(cfg, mesh)
+
+    def cut(t, R, p, lo, hi):
+        return t[lo:hi].clone()
+
+    out["params"] = _map_paths(out["params"], split, cut)
+    for k in _param_trees(out):
+        out["opt"][k] = _map_paths(out["opt"][k], split, cut)
+    lazy = {("lazy_opt", path[-1], "mv"): info for path, info in split.items()
+            if path[0] == "emb"}
+    out = _map_paths(out, lazy, lambda t, R, p, lo, hi: t[:, lo:hi].clone())
     if mesh.rank != 0 and "lazy_overflow" in out:
         out["lazy_overflow"] = torch.zeros_like(out["lazy_overflow"])
     return out
 
 
+def _whole(mesh, t: torch.Tensor, axis: int, R: int, per: int,
+           over) -> torch.Tensor:
+    """The shares ``t`` (at most ``per`` rows on dim ``axis``) of the ranks
+    of ``over`` (None: every rank) gathered in order, cut to R rows."""
+    pad = per - t.shape[axis]
+    if pad:
+        shape = list(t.shape)
+        shape[axis] = pad
+        t = torch.cat([t, t.new_zeros(shape)], axis)
+    g = mesh.all_gather(t, axis=over)                 # [n, ...]
+    g = torch.cat(list(g.unbind(0)), axis)
+    return g.narrow(axis, 0, R)
+
+
+def _model_whole(mesh, axis: int):
+    """``_map_paths``'s fn: a model-split share gathered over the model
+    group on dim ``axis``."""
+    from .parallel.full_shard import share_rows
+
+    def fn(t, R, p, lo, hi):
+        lo0, hi0 = share_rows(R, p, mesh.model, 0)
+        return _whole(mesh, t, axis, R, hi0 - lo0, "model")
+    return fn
+
+
+def gather_split(tree: dict, cfg: DMTConfig, mesh) -> dict:
+    """A param-shaped tree (params, or an optimizer's tree of them) with
+    each model-split table's share gathered whole over the model group
+    (every rank takes part)."""
+    return _map_paths(tree, _split_leaves(cfg, mesh), _model_whole(mesh, 0))
+
+
 def gather_state(cfg: DMTConfig, state: dict, mesh) -> dict:
     """This rank's share -> the whole train state on every rank (on
     ``mesh.device``), in the one-process layout: the full-mesh tables and
-    moments gathered in rank order, ``lazy_overflow`` summed.  Every rank
-    takes part (collectives)."""
+    moments gathered in rank order, the model-split tables with their
+    optimizer state over the model group, ``lazy_overflow`` summed.  Every
+    rank takes part (collectives)."""
     from .parallel.full_shard import fms_tables, share_rows
     out = dict(state)
     out["params"] = dict(state["params"])
@@ -199,21 +289,18 @@ def gather_state(cfg: DMTConfig, state: dict, mesh) -> dict:
     for name, (R, p) in fms_tables(cfg, mesh.size).items():
         lo, hi = share_rows(R, p, mesh.size, 0)
         per = hi - lo
-
-        def whole(t, axis):
-            pad = per - t.shape[axis]
-            if pad:
-                shape = list(t.shape)
-                shape[axis] = pad
-                t = torch.cat([t, t.new_zeros(shape)], axis)
-            g = mesh.all_gather(t)                     # [N, ...]
-            g = torch.cat(list(g.unbind(0)), axis)
-            return g.narrow(axis, 0, R)
-
-        out["params"]["emb"][name] = whole(state["params"]["emb"][name], 0)
+        out["params"]["emb"][name] = _whole(
+            mesh, state["params"]["emb"][name], 0, R, per, None)
         if name in out["lazy_opt"]:
-            out["lazy_opt"][name] = {
-                "mv": whole(state["lazy_opt"][name]["mv"], 1)}
+            out["lazy_opt"][name] = {"mv": _whole(
+                mesh, state["lazy_opt"][name]["mv"], 1, R, per, None)}
+    out["params"] = gather_split(out["params"], cfg, mesh)
+    for k in _param_trees(state):
+        out["opt"] = _at(out["opt"], (k,), gather_split, (cfg, mesh))
+    lazy = {("lazy_opt", path[-1], "mv"): info
+            for path, info in _split_leaves(cfg, mesh).items()
+            if path[0] == "emb"}
+    out = _map_paths(out, lazy, _model_whole(mesh, 1))
     if "lazy_overflow" in state:
         out["lazy_overflow"] = mesh.reduce_sum(state["lazy_overflow"])
     return out

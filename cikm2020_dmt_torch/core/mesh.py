@@ -1,4 +1,5 @@
-"""Process groups and the data mesh (``cikm2020_dmt_tpu/core/mesh.py``).
+"""Process groups and the (data x model) mesh
+(``cikm2020_dmt_tpu/core/mesh.py``).
 
 The JAX package runs one process over a ``(data x model)`` device mesh
 and lets XLA insert the collectives.  The port runs one process per
@@ -9,18 +10,31 @@ device, joined by ``torch.distributed``:
   rank has a card of its own, ``gloo`` on the CPU or where ranks share a
   card.  Nothing tries one backend and then another.
 - ``build_mesh`` gives this rank's ``Mesh``: the data and model sizes, the
-  rank's data index, its device and its group, with the JAX rule for the
-  sizes (``mesh_data = 0`` fills the world).  Only the data axis is
-  ported: ``mesh_model > 1`` raises.
+  rank's data and model index, its device and its groups, with the JAX
+  rule for the sizes (``mesh_data = 0`` fills the world).  Rank = data
+  index x model + model index.  With ``mesh_model > 1`` every rank makes
+  the subgroups with ``dist.new_group``, in the same order: the model
+  group (the ranks of one data index, which hold the same batch rows) and
+  the data group (the ranks of one model index, which hold the same
+  shares of the model-split tables).
 - ``param_placement`` says which param leaves are full-mesh tables (rows
-  split over every rank, ``parallel/full_shard.py``) and which are
-  replicated, by the test of JAX ``param_shardings``.
+  split over every rank, ``parallel/full_shard.py``), which are
+  model-split (rows split over the model group,
+  ``parallel/embedding_shard.py``) and which are replicated, by the test
+  of JAX ``param_shardings``.
 - ``Mesh.all_reduce``, ``all_to_all`` (equal splits), ``all_gather``,
   ``barrier``, ``agree`` and ``from_chief`` are the collectives the port
   uses, on tensors on the mesh's device: gloo takes card tensors for each
   of them and stages them through the host itself (checked on the H100).
+  ``all_reduce`` and ``all_gather`` take ``axis="model"`` or ``"data"``
+  for a subgroup; ``data_sum`` counts each data shard once.
   ``all_to_all`` and ``all_gather`` move 16-bit floats as their bytes,
   which every backend takes.
+- ``model_axis_sum`` and ``model_axis_gather`` are the model group's
+  differentiable collectives.  Model peers run the same forward on the
+  same rows, so each already holds the whole cotangent: the sum's
+  backward is the identity and the gather's takes the rank's own block
+  (JAX's ``psum`` and tiled ``all_gather`` under ``shard_map``).
 - ``active(mesh)`` marks the mesh of the training step in progress: batch
   norm then takes the global batch's statistics (``nn/layers.py``).
 """
@@ -40,9 +54,7 @@ from .config import DMTConfig
 from .logging import log_line
 
 BACKENDS = ("nccl", "gloo")
-MODEL_AXIS_SLICE = ("the model axis (mesh_model > 1: ShardedEmbeddingEngine, "
-                    "lazy_adam_rows_sharded, the model-peer request slicing "
-                    "of full_shard.py) is not ported yet")
+AXES = (None, "model", "data")
 
 
 def default_backend(device) -> str:
@@ -115,6 +127,8 @@ class Mesh:
     device: torch.device
     backend: str
     group: object = None          # None: the default group
+    model_group: object = None    # the ranks of this data index
+    data_group: object = None     # the ranks of this model index
 
     @property
     def size(self) -> int:
@@ -124,14 +138,34 @@ class Mesh:
     def data_index(self) -> int:
         return self.rank // self.model
 
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model
+
+    def _group(self, axis: Optional[str]) -> tuple[object, int]:
+        """(group, ranks) of ``axis``: None every rank, ``"model"`` the
+        model group, ``"data"`` the data group."""
+        if axis is None:
+            return self.group, self.size
+        if axis == "model":
+            return self.model_group, self.model
+        if axis == "data":
+            return (self.data_group if self.model > 1 else self.group,
+                    self.data)
+        raise ValueError(f"mesh axis {axis!r}: one of {AXES}")
+
     # -- collectives --------------------------------------------------
-    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """``t`` reduced over every rank, in place; returns ``t``.  Takes
-        32- and 64-bit types (cast 16-bit floats first)."""
+    def all_reduce(self, t: torch.Tensor, op: str = "sum",
+                   axis: Optional[str] = None) -> torch.Tensor:
+        """``t`` reduced over the ranks of ``axis`` (None: every rank), in
+        place; returns ``t``.  Takes 32- and 64-bit types (cast 16-bit
+        floats first)."""
         if t.dtype in (torch.bfloat16, torch.float16):
             raise TypeError(f"all_reduce: {t.dtype}; reduce in float32")
         red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-        dist.all_reduce(t, red, group=self.group)
+        group, n = self._group(axis)
+        if axis is None or n > 1:
+            dist.all_reduce(t, red, group=group)
         return t
 
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
@@ -148,14 +182,19 @@ class Mesh:
         dist.all_to_all_single(out, src, group=self.group)
         return out.view(t.dtype) if bits else out
 
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """[size, *t.shape]: every rank's ``t`` in rank order."""
+    def all_gather(self, t: torch.Tensor,
+                   axis: Optional[str] = None) -> torch.Tensor:
+        """[n, *t.shape]: the ``t`` of each of the n ranks of ``axis``
+        (None: every rank) in rank order."""
+        group, n = self._group(axis)
+        if axis is not None and n == 1:
+            return t[None]
         bits = t.dtype in (torch.bfloat16, torch.float16)
         src = t.contiguous()
         if bits:
             src = src.view(torch.uint8)
-        parts = [torch.empty_like(src) for _ in range(self.size)]
-        dist.all_gather(parts, src, group=self.group)
+        parts = [torch.empty_like(src) for _ in range(n)]
+        dist.all_gather(parts, src, group=group)
         out = torch.stack(parts)
         return out.view(t.dtype) if bits else out
 
@@ -184,6 +223,13 @@ class Mesh:
         """A new tensor: ``t`` summed over every rank (``t`` unchanged)."""
         return self.all_reduce(t.clone())
 
+    def data_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """A new tensor: ``t`` summed over the data shards, each counted
+        once (the copies of model index 0; model peers hold the same batch
+        rows), the same bits on every rank."""
+        mine = t.clone() if self.model_index == 0 else torch.zeros_like(t)
+        return self.all_reduce(mine)
+
 
 def build_mesh(cfg: DMTConfig, world: Optional[int] = None, device=None,
                rank: Optional[int] = None) -> Mesh:
@@ -192,10 +238,9 @@ def build_mesh(cfg: DMTConfig, world: Optional[int] = None, device=None,
     ``mesh_data`` 0 means every rank not used by the model axis; data x
     model must cover the world.  The device is ``device``; ``cuda`` without
     an index (the default) is ``cuda:(rank % device_count)``.  A CUDA device
-    without CUDA raises."""
+    without CUDA raises.  With ``mesh_model > 1`` every rank makes the
+    model and data groups (collectives of the process group)."""
     model = max(1, cfg.mesh_model)
-    if model > 1:
-        raise NotImplementedError(f"mesh_model {model}: {MODEL_AXIS_SLICE}")
     world = world if world is not None else world_size()
     rank = rank if rank is not None else (
         dist.get_rank() if dist.is_initialized() else 0)
@@ -216,23 +261,44 @@ def build_mesh(cfg: DMTConfig, world: Optional[int] = None, device=None,
     if world > 1 and not dist.is_initialized():
         raise RuntimeError("build_mesh: a mesh over several processes needs "
                            "initialize_distributed first")
-    return Mesh(data, model, rank, device, backend)
+    mesh = Mesh(data, model, rank, device, backend)
+    if model > 1:
+        # every rank makes every group, in the same order
+        for d in range(data):
+            g = dist.new_group([d * model + m for m in range(model)])
+            if d == mesh.data_index:
+                mesh.model_group = g
+        for m in range(model):
+            g = dist.new_group([d * model + m for d in range(data)])
+            if m == mesh.model_index:
+                mesh.data_group = g
+    return mesh
 
 
 def param_placement(cfg: DMTConfig, params: dict, mesh: Mesh) -> dict:
     """``params``' tree with each leaf replaced by ``"full_mesh"`` (a
-    table whose rows split over every rank) or ``"replicated"``."""
+    table whose rows split over every rank), ``"model_split"`` (a table of
+    the main or bias-net collection whose rows split over the model group,
+    ``embedding_shard.model_split_tables``) or ``"replicated"``."""
+    from ..parallel.embedding_shard import model_split_tables
     from ..parallel.full_shard import fms_table_rows
     fms = fms_table_rows(cfg, mesh.size)
+    split = model_split_tables(cfg, mesh.size, mesh.model)
+    bias = params.get("bias_net", {}).get("emb")
 
     def place(tree, table=None):
         if isinstance(tree, dict):
-            return {k: place(v, k if tree is params.get("emb") else None)
+            return {k: place(v, k if tree is params.get("emb")
+                             else "bias:" + k if tree is bias else None)
                     for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):
             return [place(v) for v in tree]
-        full = table in fms and getattr(tree, "ndim", 0) == 2
-        return "full_mesh" if full else "replicated"
+        if getattr(tree, "ndim", 0) == 2:
+            if table in fms:
+                return "full_mesh"
+            if table in split:
+                return "model_split"
+        return "replicated"
 
     return place(params)
 
@@ -278,6 +344,43 @@ class _AllReduceSum(torch.autograd.Function):
 def all_reduce_sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Differentiable sum of ``t`` over every rank of ``mesh``."""
     return _AllReduceSum.apply(t, mesh)
+
+
+class _ModelAxisSum(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        return mesh.all_reduce(t.float().clone(), axis="model").to(t.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def model_axis_sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``t`` summed over the model group (in float32, cast back), whose
+    backward is the identity: each model peer holds the whole cotangent."""
+    if mesh.model == 1:
+        return t
+    return _ModelAxisSum.apply(t, mesh)
+
+
+class _ModelAxisGather(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return mesh.all_gather(t, axis="model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.mesh.model_index], None
+
+
+def model_axis_gather(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """[model, *t.shape]: each model peer's ``t`` in order, whose backward
+    is the rank's own block of the cotangent."""
+    return _ModelAxisGather.apply(t, mesh)
 
 
 # ---------------------------------------------------------------------------

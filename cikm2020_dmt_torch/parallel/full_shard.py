@@ -26,9 +26,16 @@ that is the logical rows ``[k * G / N * p, min(R, (k + 1) * G / N * p))``
    and runs LazyAdam on its groups (``lazy_adam_rows``: the ``update_rows``
    and ``update_rows_3d`` kernels on the card).
 
+With a model axis (m > 1) the model peers of a data row hold the same
+batch rows, so the same union: when m divides U, peer j requests and
+pushes only the strided slice ``groups[j::m]`` with ``capacity(U / m,
+N)`` buckets, and one model-group sum reassembles the ``[U p, D]`` grid;
+otherwise every peer fetches the whole union and only peer 0 pushes.
+
 Overflow is the JAX package's: elements past the budget read zeros (no
 ``lazy_overflow_exact`` fallback), gradients of capacity-dropped groups
-are skipped for the step, and both are counted in ``lazy_overflow``.
+are skipped for the step, and both are counted in ``lazy_overflow`` (on
+model index 0, whose slice's capacity drop JAX's counter reports).
 
 ``lookup_fms`` is the forward half on its own, exact (a budget that holds
 every id): the eval engine's lookup of a full-mesh table.
@@ -126,17 +133,27 @@ def _owned_rows(table: torch.Tensor, rel: torch.Tensor, inb: torch.Tensor,
                                                           device=rows.device))
 
 
+def _peer_slice(mesh, U: int):
+    """Whether the model peers slice a union of U groups (m > 1 divides
+    U)."""
+    return mesh.model > 1 and U % mesh.model == 0
+
+
 def fetch_rows(mesh, table: torch.Tensor, groups: torch.Tensor, bad,
                R: int, p: int):
     """[U * p, D] rows of the distinct ``groups`` [U] from their owners,
-    and the step's capacity drop.  ``bad`` (this rank's overflow, a 0-d
-    tensor) joins the flag that picks the exact path."""
+    and the step's capacity drop (of this rank's slice, where the model
+    peers slice the union).  ``bad`` (this rank's overflow, a 0-d tensor)
+    joins the flag that picks the exact path."""
     n_dev, D = mesh.size, table.shape[1]
     U = groups.shape[0]
     G = -(-R // p)
     per = G // n_dev
-    C = capacity(U, n_dev)
-    bucketed, bslot, _, _, cap_drop = owner_layout(groups, C, n_dev, per, G)
+    M, mi = mesh.model, mesh.model_index
+    sliced = _peer_slice(mesh, U)
+    mine = groups.view(U // M, M)[:, mi].contiguous() if sliced else groups
+    C = capacity(mine.shape[0], n_dev)
+    bucketed, bslot, _, _, cap_drop = owner_layout(mine, C, n_dev, per, G)
     my_lo = mesh.rank * per
     flag = (torch.maximum(bad, cap_drop) > 0).to(torch.int32).reshape(1)
     if int(mesh.all_reduce(flag, "max")[0]) == 0:
@@ -146,6 +163,13 @@ def fetch_rows(mesh, table: torch.Tensor, groups: torch.Tensor, bad,
         resp = mesh.all_to_all(_owned_rows(table, rel, inb, p))
         resp = torch.cat([resp, resp.new_zeros((1, p, D))])
         rows = resp.index_select(0, bslot)
+        if sliced:
+            # the peers' slices into one grid: a model-group sum of rows
+            # that one peer each fills (exact in float32)
+            grid = torch.zeros((U // M, M, p, D), dtype=torch.float32,
+                               device=rows.device)
+            grid[:, mi] = rows.float()
+            rows = mesh.all_reduce(grid, axis="model").to(table.dtype)
     else:
         # exact: every rank's list served by every owner, summed (one
         # owner per group, the rest zero) in float32
@@ -192,16 +216,27 @@ def fms_adam_update(mesh, table: torch.Tensor, mv: torch.Tensor, col,
     """LazyAdam for a full-mesh table: the union's gradient rows [U * p,
     D] go to their owners, and each owner runs one Adam step per group it
     received on the float32 sum of the ranks' gradients, in place in its
-    share ``table`` and moments ``mv``.  Returns (table, mv)."""
+    share ``table`` and moments ``mv``.  Model peers hold the same
+    gradient rows, so each data row's are sent once: peer j its slice
+    ``[j::m]``, or peer 0 all of them where m does not divide U.  Returns
+    (table, mv)."""
     from ..train.lazy import lazy_adam_rows
     n_dev, D = mesh.size, table.shape[1]
     U = col.uids.shape[0] // p
     G = -(-col.rows_total // p)
     per = G // n_dev
-    C = capacity(U, n_dev)
+    M, mi = mesh.model, mesh.model_index
     groups = col.uids.view(U, p)[:, 0] // p
-    bucketed, _, src, valid, _ = owner_layout(groups, C, n_dev, per, G)
     g3 = g_rows.reshape(U, p, D)
+    if _peer_slice(mesh, U):
+        groups = groups.view(U // M, M)[:, mi].contiguous()
+        g3 = g3.view(U // M, M, p, D)[:, mi]
+    C = capacity(groups.shape[0], n_dev)
+    bucketed, _, src, valid, _ = owner_layout(groups, C, n_dev, per, G)
+    if M > 1 and not _peer_slice(mesh, U) and mi > 0:
+        # a copy of peer 0's rows: no requests
+        bucketed = torch.full_like(bucketed, G)
+        valid = torch.zeros_like(valid)
     g_send = torch.where(valid[:, None, None], g3.index_select(0, src),
                          torch.zeros((), dtype=g3.dtype, device=g3.device))
     if grad_bf16:

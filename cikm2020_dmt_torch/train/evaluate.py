@@ -119,13 +119,15 @@ def run_eval(cfg: DMTConfig, model: BaseModel, params,
     card: without CUDA this raises.  Pass ``device="cpu"`` for the plain
     path.
 
-    With ``mesh`` (a data mesh, ``core.mesh.build_mesh``; every rank calls
-    this on the same stream) each rank scores its equal slice of every
-    batch on the mesh's device, a full-mesh table's rows come from their
-    owners (``parallel/embedding_shard.make_engine``; ``params`` may hold
-    the whole table or the rank's share), and the scores are gathered in
-    batch order; every rank returns the one-process result, and only rank
-    0 writes ``detail_file``."""
+    With ``mesh`` (``core.mesh.build_mesh``; every rank calls this on the
+    same stream) each data shard scores its equal slice of every batch on
+    the mesh's device (model peers the same slice), a full-mesh table's
+    rows come from their owners and a model-split table's from the model
+    group (``parallel/embedding_shard.make_engine``; ``params`` may hold
+    the whole tables or the rank's shares), the scores are gathered in
+    batch order and each data shard's metrics counted once; every rank
+    returns the one-process result, and only rank 0 writes
+    ``detail_file``."""
     if mesh is not None:
         from ..convert import shard_params
         from ..parallel.embedding_shard import make_engine
@@ -159,7 +161,7 @@ def run_eval(cfg: DMTConfig, model: BaseModel, params,
             out = step_fn(params, metrics, dev_batch, model_state)
             metrics, p_ctr, p_cvr = out[:3]
             if mesh is not None:
-                p_ctr, p_cvr = (mesh.all_gather(p).reshape(-1)
+                p_ctr, p_cvr = (mesh.all_gather(p, axis="data").reshape(-1)
                                 for p in (p_ctr, p_cvr))
             n_valid = int(batch["valid"].sum())
             pc = p_ctr[:n_valid].cpu().numpy()
@@ -184,7 +186,7 @@ def run_eval(cfg: DMTConfig, model: BaseModel, params,
     if mesh is not None:
         metrics = _sum_over_ranks(metrics, mesh)
         if gate_total is not None:
-            gate_total = mesh.reduce_sum(
+            gate_total = mesh.data_sum(
                 torch.from_numpy(gate_total).to(device)).cpu().numpy()
     headers = collector.result()
     p_clk = np.concatenate(clk_scores) if clk_scores else np.zeros(
@@ -200,19 +202,19 @@ def run_eval(cfg: DMTConfig, model: BaseModel, params,
 
 
 def _rank_slice(batch: dict, mesh) -> dict:
-    """The rank's equal slice of every array of a batch (rows [r * B / n,
-    (r + 1) * B / n))."""
+    """The data shard's equal slice of every array of a batch (rows
+    [d * B / n, (d + 1) * B / n) of data index d of n)."""
     B = batch["valid"].shape[0]
-    if B % mesh.size:
+    if B % mesh.data:
         raise ValueError(f"run_eval: batch of {B} rows does not split over "
-                         f"{mesh.size} ranks")
-    n = B // mesh.size
-    return {k: v[mesh.rank * n:(mesh.rank + 1) * n] for k, v in batch.items()}
+                         f"{mesh.data} data ranks")
+    n, d = B // mesh.data, mesh.data_index
+    return {k: v[d * n:(d + 1) * n] for k, v in batch.items()}
 
 
 def _sum_over_ranks(metrics: dict, mesh) -> dict:
-    """The streaming metrics summed over the ranks."""
-    return tree_map(lambda t: mesh.reduce_sum(t.reshape(-1)).view(t.shape),
+    """The streaming metrics summed over the data shards."""
+    return tree_map(lambda t: mesh.data_sum(t.reshape(-1)).view(t.shape),
                     metrics)
 
 

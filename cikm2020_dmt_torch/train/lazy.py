@@ -33,10 +33,20 @@ value moved with it.  ``spec.group`` is that pack factor (1 otherwise).
 Under a data mesh (``core/mesh.py``) each rank holds a slice of the global
 batch.  A table the plan marks ``full_mesh`` splits its rows over the ranks
 and exchanges rows and gradients with their owners
-(``parallel/full_shard.py``).  Every other lazy table stays replicated and
-takes the JAX package's global union: ``collect`` gathers every rank's ids,
-unites them, and slices this rank's elements back out, so the gradient rows
-summed over the ranks update the same rows on every rank.
+(``parallel/full_shard.py``).  Every other lazy table takes the JAX
+package's global union: ``collect`` gathers the ids of every data shard
+(over the data group: model peers hold the same rows), unites them, and
+slices this rank's elements back out by its data index, so the gradient
+rows summed over the ranks update the same rows on every rank.
+
+With a model axis a lazy table that is not full-mesh but that
+``embedding_shard.model_split_tables`` splits is ``sharded``: its rows and
+moments split over the model group.  ``collect`` fetches the union's rows
+once through ``shard_take_rows`` (a model-group sum), the exact-overflow
+fallback reads the missed rows the same way (only on a step that
+overflows: one host read), and ``lazy_adam_rows_sharded`` runs the row
+math on the whole union on every peer and writes back only the rows the
+rank holds, with no collective.
 """
 
 from __future__ import annotations
@@ -48,7 +58,6 @@ import torch
 
 from ..core.config import DMTConfig
 from ..data.pipeline import IDS
-from ..nn.embedding import pack_factor
 from ..ops.scatter_rows import (take_rows_sparse_sorted, update_rows,
                                 update_rows_3d)
 from .optim import B1, B2, EPS
@@ -62,6 +71,7 @@ class LazyTableSpec:
     dim: int
     group: int = 1                        # rows updated together
     full_mesh: bool = False               # rows split over every rank
+    sharded: bool = False                 # rows split over the model group
 
     @property
     def rows(self) -> int:
@@ -94,16 +104,22 @@ def build_lazy_plan(cfg: DMTConfig, mesh=None) -> tuple[LazyTableSpec, ...]:
     """Tables under lazy Adam: the flag on, Adam, no dense weight decay,
     at least ``dedup_rows_threshold`` rows, and no timestamp feature (those
     ids are re-bucketed inside the model).  On a mesh, the tables that
-    ``full_shard.splits`` over its ranks are ``full_mesh``; the rest stay
+    ``full_shard.splits`` over its ranks are ``full_mesh``; of the rest,
+    those split over its model axis are ``sharded``, the others
     replicated."""
-    return plan_tables(cfg, mesh.size if mesh is not None else 1)
+    if mesh is None:
+        return plan_tables(cfg, 1)
+    return plan_tables(cfg, mesh.size, mesh.model)
 
 
-def plan_tables(cfg: DMTConfig, n_dev: int) -> tuple[LazyTableSpec, ...]:
-    """``build_lazy_plan`` over ``n_dev`` ranks."""
+def plan_tables(cfg: DMTConfig, n_dev: int,
+                model: int = 1) -> tuple[LazyTableSpec, ...]:
+    """``build_lazy_plan`` over ``n_dev`` ranks, ``model`` of them on the
+    model axis."""
     if not (cfg.lazy_adam and cfg.optimizer.lower() == "adam"
             and cfg.wnd_wd <= 1e-5):
         return ()
+    from ..parallel.embedding_shard import model_split_tables, table_group
     from ..parallel.full_shard import splits
     ts_feats = frozenset(cfg.attention_ts)
     by_table: dict[str, list] = {}
@@ -112,13 +128,13 @@ def plan_tables(cfg: DMTConfig, n_dev: int) -> tuple[LazyTableSpec, ...]:
     specs = tuple(
         LazyTableSpec(name, tuple((s.feature, s.id_size) for s in specs),
                       specs[0].dim,
-                      pack_factor(specs[0].dim)
-                      if cfg.packed_tables
-                      and specs[0].id_size >= cfg.pack_rows_threshold else 1)
+                      table_group(cfg, specs[0].id_size, specs[0].dim))
         for name, specs in by_table.items()
         if max(s.id_size for s in specs) >= cfg.dedup_rows_threshold
         and not any(s.feature in ts_feats for s in specs))
-    return tuple(replace(s, full_mesh=splits(cfg, s, n_dev)) for s in specs)
+    split = model_split_tables(cfg, n_dev, model)
+    return tuple(replace(s, full_mesh=splits(cfg, s, n_dev),
+                         sharded=s.name in split) for s in specs)
 
 
 def budget(n: int, budget_div: int) -> int:
@@ -177,11 +193,13 @@ def union(ids: torch.Tensor, R: int, p: int, U: int) -> Union:
 def collect(spec: LazyTableSpec, batch: dict, table: torch.Tensor,
             budget_div: int, mesh=None) -> LazyCollection:
     """The table's union over the batch, its rows gathered.  With ``mesh``
-    (a replicated table on a data mesh) the union is the global batch's:
-    every rank's ids are gathered and united (the budget is the global
-    one, as in the JAX package), and the collection keeps this rank's
-    elements, sorted by slot."""
-    R, p = table.shape[0], spec.group
+    (a replicated or sharded table on a mesh) the union is the global
+    batch's: every data shard's ids are gathered and united (the budget is
+    the global one, as in the JAX package), and the collection keeps this
+    rank's elements, sorted by slot.  A sharded table (``table`` this
+    rank's share) fetches the union's rows over the model group."""
+    R = spec.rows if spec.sharded else table.shape[0]
+    p = spec.group
     parts, offsets = site_ids(spec, batch)
     local = torch.cat(parts).clamp(0, R - 1)
     if mesh is None:
@@ -190,31 +208,44 @@ def collect(spec: LazyTableSpec, batch: dict, table: torch.Tensor,
     else:
         # the union (and its budget) does not depend on the ids' order
         n = local.numel()
-        ids = mesh.all_gather(local).reshape(-1)
+        ids = mesh.all_gather(local, axis="data").reshape(-1)
         u = union(ids, R, p, budget(ids.numel(), budget_div))
-        pos = u.pos[mesh.rank * n:(mesh.rank + 1) * n]
+        d = mesh.data_index
+        pos = u.pos[d * n:(d + 1) * n]
         order = torch.sort(pos, stable=True)[1]
         seg_sorted = pos[order]
-    rows = table.index_select(0, u.uids.clamp(max=R - 1))
+    if spec.sharded:
+        from ..parallel.embedding_shard import shard_take_rows
+        rows = shard_take_rows(mesh, table, u.uids, R, p)
+    else:
+        rows = table.index_select(0, u.uids.clamp(max=R - 1))
     return LazyCollection(u.uids, pos, rows, offsets, R, u.overflow, order,
                           seg_sorted, local)
 
 
 def make_overlay(col: LazyCollection, rows_diff: torch.Tensor,
-                 table: torch.Tensor = None) -> LazyOverlay:
+                 table: torch.Tensor = None, shard=None) -> LazyOverlay:
     """The union grid, inside the differentiated function: ``rows_diff``
     is the diff leaf.  With ``table`` (cfg.lazy_overflow_exact) elements
     past the budget read their true rows (no gradient) instead of the zero
     row; the gather runs every step, which costs one [N, D] pass and keeps
-    the step free of host synchronisation."""
+    the step free of host synchronisation.  For a sharded table (``shard``
+    = (mesh, R, p), ``table`` this rank's share) the rows come through
+    ``shard_take_rows``, on a step whose union overflows only (the same
+    count on every rank: one host read)."""
     rows_ext = torch.cat([rows_diff, rows_diff.new_zeros(
         (1, rows_diff.shape[1]))])
     grid = take_rows_sparse_sorted(rows_ext, col.pos, col.order,
                                    col.seg_sorted)
-    if table is not None:
+    if table is not None and (shard is None or int(col.overflow) > 0):
         miss = (col.pos >= rows_diff.shape[0])[:, None]
-        fallback = table.detach().index_select(0, col.ids).to(grid.dtype)
-        grid = torch.where(miss, fallback, grid)
+        if shard is None:
+            fallback = table.detach().index_select(0, col.ids)
+        else:
+            from ..parallel.embedding_shard import shard_take_rows
+            fallback = shard_take_rows(shard[0], table.detach(), col.ids,
+                                       *shard[1:])
+        grid = torch.where(miss, fallback.to(grid.dtype), grid)
     return LazyOverlay(grid, col.offsets)
 
 
@@ -230,6 +261,29 @@ def overlay_take(ov: LazyOverlay, feature: str, ids) -> torch.Tensor:
     return ov.grid[off:off + numel].reshape(*ids.shape, ov.grid.shape[-1])
 
 
+def _adam_rows_math(rows, g_rows, mvu, count, lr, dtype):
+    """LazyAdam's row math on a [U, D] block: (p_new in ``dtype``, m_new,
+    v_new) from the rows, their gradient and their [2, U, D] moments."""
+    g32 = g_rows.float()
+    m_new = B1 * mvu[0] + (1.0 - B1) * g32
+    v_new = B2 * mvu[1] + (1.0 - B2) * (g32 * g32)
+    c = count.float()
+    mhat = m_new / (1.0 - torch.pow(torch.tensor(B1, device=c.device), c))
+    vhat = v_new / (1.0 - torch.pow(torch.tensor(B2, device=c.device), c))
+    p_new = (rows.float() - lr * mhat / (torch.sqrt(vhat) + EPS)).to(dtype)
+    return p_new, m_new, v_new
+
+
+def _write_back(table, mv, tgt, keep, p_new, m_new, v_new):
+    """Rows ``tgt`` where ``keep`` of the table and of both moment slices,
+    in place; the others dropped (a moment id outside [0, 2R))."""
+    R, U = table.shape[0], tgt.shape[0]
+    update_rows(table, torch.where(keep, tgt, R), p_new)
+    ids2 = torch.cat([torch.where(keep, tgt, 2 * R),
+                      torch.where(keep, tgt + R, 2 * R)])
+    update_rows_3d(mv, ids2, torch.cat([m_new, v_new]).reshape(2 * U, -1))
+
+
 def lazy_adam_rows(table: torch.Tensor, mv: torch.Tensor,
                    uids: torch.Tensor, rows: torch.Tensor,
                    g_rows: torch.Tensor, count: torch.Tensor,
@@ -240,21 +294,29 @@ def lazy_adam_rows(table: torch.Tensor, mv: torch.Tensor,
     correction by ``count``, one rounding to the table's type.  Returns
     (table, mv)."""
     R = table.shape[0]
-    U = uids.shape[0]
-    lr = schedule(count - 1)
-    safe = uids.clamp(max=R - 1)
-    mvu = mv.index_select(1, safe)
-    g32 = g_rows.float()
-    m_new = B1 * mvu[0] + (1.0 - B1) * g32
-    v_new = B2 * mvu[1] + (1.0 - B2) * (g32 * g32)
-    c = count.float()
-    mhat = m_new / (1.0 - torch.pow(torch.tensor(B1, device=c.device), c))
-    vhat = v_new / (1.0 - torch.pow(torch.tensor(B2, device=c.device), c))
-    p_new = (rows.float() - lr * mhat / (torch.sqrt(vhat) + EPS)
-             ).to(table.dtype)
-    update_rows(table, uids, p_new)
-    real = uids < R
-    ids2 = torch.cat([torch.where(real, uids, 2 * R),
-                      torch.where(real, uids + R, 2 * R)])
-    update_rows_3d(mv, ids2, torch.cat([m_new, v_new]).reshape(2 * U, -1))
+    mvu = mv.index_select(1, uids.clamp(max=R - 1))
+    p_new, m_new, v_new = _adam_rows_math(rows, g_rows, mvu, count,
+                                          schedule(count - 1), table.dtype)
+    _write_back(table, mv, uids, uids < R, p_new, m_new, v_new)
+    return table, mv
+
+
+def lazy_adam_rows_sharded(mesh, table: torch.Tensor, mv: torch.Tensor,
+                           uids: torch.Tensor, rows: torch.Tensor,
+                           g_rows: torch.Tensor, count: torch.Tensor,
+                           schedule: Callable, R: int, p: int):
+    """``lazy_adam_rows`` for a table split over the model group (``table``
+    and ``mv`` this rank's share of R logical rows in groups of ``p``): the
+    row math on the whole union, the same on every peer, then only the
+    rows this rank holds written back; no collective.  Returns (table,
+    mv)."""
+    from ..parallel.embedding_shard import shard_lo
+    n_here = table.shape[0]
+    rel = uids - shard_lo(mesh, R, p)
+    keep = (uids < R) & (rel >= 0) & (rel < n_here)
+    safe = torch.where(keep, rel, 0)
+    p_new, m_new, v_new = _adam_rows_math(
+        rows, g_rows, mv.index_select(1, safe), count, schedule(count - 1),
+        table.dtype)
+    _write_back(table, mv, safe, keep, p_new, m_new, v_new)
     return table, mv

@@ -1,6 +1,6 @@
 """The training step (``cikm2020_dmt_tpu/train/loop.py`` ``step_fn`` and
 its ``_lazy_step``), for every model of the zoo, on one device or on a
-data mesh of one process per device (``core/mesh.py``).
+(data x model) mesh of one process per device (``core/mesh.py``).
 
 One ``Trainer.train_step``:
 
@@ -30,27 +30,38 @@ buffers and copied to the card on a side stream two batches ahead
 a result-file block and a summary line every ``validate_step`` steps, and
 resume or warm start.
 
-On a data mesh (``Trainer(cfg, mesh=...)``, model axis 1) each rank takes
-its own slice of the global batch (``batch_size`` examples, its share of
-the files), and the step is the JAX package's on the global batch:
+On a mesh (``Trainer(cfg, mesh=...)``) each data rank takes its own slice
+of the global batch (``batch_size`` examples, its share of the files), the
+model peers of a data index take the same slice, and the step is the JAX
+package's on the global batch:
 
 - each rank differentiates its local mean loss divided by the number of
-  data ranks (the JAX loss is the global batch's mean), and one
-  ``all_reduce`` sums the dense gradients with the gradient rows of the
-  replicated lazy tables, whose union is the global batch's
-  (``lazy.collect``);
+  data ranks (the JAX loss is the global batch's mean); one float32
+  ``all_reduce`` over every rank sums the replicated leaves' gradients
+  with the gradient rows of the replicated and sharded lazy tables, whose
+  union is the global batch's (``lazy.collect``), model index 0 giving
+  its data shard's and the model peers zeros (``Mesh.data_sum``), so each
+  data shard counts once, the sums are the data mesh's, and every rank
+  holds the same bits; a model-split table's gradient (its rank's rows,
+  through the model-group sum whose backward is the identity) is summed
+  over the data group;
 - a full-mesh table (``parallel/full_shard.py``) is split by rows over the
   ranks: the rank holds its share of the rows and moments, fetches its
   union's rows from their owners and pushes its gradient rows back;
+- a model-split table (``parallel/embedding_shard.py``) is split by rows
+  over the model group, its dense Adam moments alike; a sharded lazy
+  table updates its rows with ``lazy.lazy_adam_rows_sharded``;
 - batch norm takes the global batch's statistics (``core.mesh.active``);
-  rank ``k > 0`` seeds its dropout generator with ``(seed + 1, step, k)``,
-  so every dropout draw, the fused block's seed included, differs by rank;
+  a rank of data index ``k > 0`` seeds its dropout generator with
+  ``(seed + 1, step, k)``, so every dropout draw, the fused block's seed
+  included, differs by data shard and model peers draw the same masks;
 - the loss, ``lazy_overflow`` and the streaming metrics stay per rank
-  and are reduced where they are read (log, save, ``train``'s result);
+  and are reduced where they are read (log, save, ``train``'s result),
+  each data shard counted once;
 - a checkpoint is the one-process format: rank 0 writes the state gathered
   from the ranks (``convert.gather_state``), and every rank restores the
   whole state and keeps its share (``convert.shard_state``), so a
-  checkpoint restores on any number of ranks;
+  checkpoint restores on any mesh;
 - the ranks agree at each step boundary on a signal or the end of a
   rank's data, so none is left waiting in a collective.
 """
@@ -78,7 +89,8 @@ from ..metrics.streaming import (task_metrics_init, task_metrics_update,
                                  task_metrics_values)
 from ..models.zoo import build_model
 from ..parallel.full_shard import collect_fms, fms_adam_update
-from .lazy import build_lazy_plan, collect, lazy_adam_rows, make_overlay
+from .lazy import (build_lazy_plan, collect, lazy_adam_rows,
+                   lazy_adam_rows_sharded, make_overlay)
 from .losses import l2_regularization, model_loss, scores_from_logits
 from .optim import make_optimizer, piecewise_constant
 
@@ -211,7 +223,7 @@ def _rebuild(tree, it):
 
 
 class Trainer:
-    """Trains a model of the zoo on one device, or as one rank of a data
+    """Trains a model of the zoo on one device, or as one rank of a
     ``mesh`` (``core.mesh.build_mesh``; the rank's device is the mesh's).
     The default device is the card: without CUDA the constructor raises
     instead of training on the CPU.  Pass ``device="cpu"`` for the plain
@@ -219,10 +231,6 @@ class Trainer:
 
     def __init__(self, cfg: DMTConfig, device="cuda", mesh=None):
         if mesh is not None:
-            if mesh.model > 1:
-                raise NotImplementedError(
-                    f"Trainer: mesh_model {mesh.model}: "
-                    f"{meshlib.MODEL_AXIS_SLICE}")
             device = mesh.device
         self.mesh = mesh
         self.chief = mesh is None or mesh.rank == 0
@@ -248,9 +256,14 @@ class Trainer:
         # full-mesh tables: name -> (logical rows, group size)
         self.full_mesh = {t.name: (t.rows, t.group) for t in self.lazy_plan
                           if t.full_mesh}
+        # lazy tables split over the model group: name -> (rows, group)
+        self.sharded = {t.name: (t.rows, t.group) for t in self.lazy_plan
+                        if t.sharded}
         self.schedule = piecewise_constant(cfg.step_boundary,
                                            cfg.learning_rate)
         self.ckpt = CheckpointManager(cfg.model_path)
+        # how each dense gradient sums over a mesh (``_sum_over_ranks``)
+        self._dense_over: Optional[list] = None
         self._pack_layout: Optional[dict] = None
         self._copy_stream = None
         self.save_seconds: dict[int, float] = {}
@@ -324,7 +337,9 @@ class Trainer:
                                table=(params["emb"][name]
                                       if cfg.lazy_overflow_exact
                                       and name not in self.full_mesh
-                                      else None))
+                                      else None),
+                               shard=((mesh,) + self.sharded[name]
+                                      if name in self.sharded else None))
             for name, c in cols.items()}
         try:
             with meshlib.active(mesh):
@@ -344,9 +359,15 @@ class Trainer:
         grads = [torch.zeros_like(w) if g is None else g
                  for w, g in zip(wrt, grads)]
         if mesh is not None:
+            if self._dense_over is None:
+                self._dense_over = [
+                    "data" if p == "model_split" else "world"
+                    for p in _flatten(meshlib.param_placement(cfg, dense,
+                                                              mesh), [])]
             grads = self._sum_over_ranks(
-                grads, [True] * len(leaves)
-                + [name not in self.full_mesh for name in rows_d])
+                grads, self._dense_over
+                + [None if name in self.full_mesh else "world"
+                   for name in rows_d])
         g_dense = _rebuild(dense, iter(grads[:len(leaves)]))
         g_rows = dict(zip(rows_d, grads[len(leaves):]))
 
@@ -366,14 +387,20 @@ class Trainer:
                         mesh, table, mv, c, g_rows[name], count,
                         self.schedule, self.full_mesh[name][1],
                         cfg.fms_grad_bf16)
-                    overflow = overflow + c.overflow
+                    # each rank's own union; model peers share theirs
+                    counts = mesh.model_index == 0
+                elif name in self.sharded:
+                    table, mv = lazy_adam_rows_sharded(
+                        mesh, table, mv, c.uids, c.rows, g_rows[name], count,
+                        self.schedule, *self.sharded[name])
+                    counts = self.chief    # the global union: rank 0
                 else:
                     table, mv = lazy_adam_rows(table, mv, c.uids, c.rows,
                                                g_rows[name], count,
                                                self.schedule)
-                    # a replicated table's union is global: rank 0 counts
-                    if self.chief:
-                        overflow = overflow + c.overflow
+                    counts = self.chief
+                if counts:
+                    overflow = overflow + c.overflow
                 new_params["emb"][name] = table
                 lazy_opt[name] = {"mv": mv}
             new_state = {"params": new_params, "model_state": model_state,
@@ -385,31 +412,40 @@ class Trainer:
                 loss=loss.detach(), weights=batch["valid"])
         return new_state, metrics, loss.detach()
 
-    def _sum_over_ranks(self, grads: list, summed: list) -> list:
-        """The gradients flagged in ``summed`` added up over the ranks by
-        one float32 ``all_reduce`` (each cast back to its type); the others
-        (a full-mesh table's union rows, pushed to their owners) as they
-        are."""
-        idx = [i for i, f in enumerate(summed) if f]
-        if not idx:
-            return grads
-        flat = torch.cat([grads[i].reshape(-1).float() for i in idx])
-        self.mesh.all_reduce(flat)
+    def _sum_over_ranks(self, grads: list, over: list) -> list:
+        """Each gradient summed by its entry in ``over``: ``"world"`` over
+        the data shards by one float32 ``all_reduce`` over every rank
+        (``Mesh.data_sum``: model peers hold the same batch rows, so model
+        index 0 gives its shard's gradient and the others zeros; the same
+        bits on every rank), ``"data"`` by one over the data group (a
+        model-split table's rows); None as it is (a full-mesh table's union
+        rows, pushed to their owners).  Each is cast back to its type."""
         out = list(grads)
-        off = 0
-        for i in idx:
-            n = grads[i].numel()
-            out[i] = flat[off:off + n].view(grads[i].shape).to(grads[i].dtype)
-            off += n
+        for axis in ("world", "data"):
+            idx = [i for i, a in enumerate(over) if a == axis]
+            if not idx:
+                continue
+            flat = torch.cat([grads[i].reshape(-1).float() for i in idx])
+            if axis == "world":
+                flat = self.mesh.data_sum(flat)
+            else:
+                self.mesh.all_reduce(flat, axis="data")
+            off = 0
+            for i in idx:
+                n = grads[i].numel()
+                out[i] = flat[off:off + n].view(grads[i].shape).to(
+                    grads[i].dtype)
+                off += n
         return out
 
     def reduce_metrics(self, metrics: dict) -> dict:
-        """The streaming metrics summed over the ranks (one ``all_reduce``;
-        every rank calls it), or ``metrics`` without a mesh."""
+        """The streaming metrics summed over the data shards (one
+        ``all_reduce``; every rank calls it), or ``metrics`` without a
+        mesh."""
         if self.mesh is None:
             return metrics
         leaves = _flatten(metrics, [])
-        flat = self.mesh.all_reduce(
+        flat = self.mesh.data_sum(
             torch.cat([t.reshape(-1).float() for t in leaves]))
         parts, off = [], 0
         for t in leaves:
@@ -421,7 +457,7 @@ class Trainer:
         """The global batch's loss: the mean of the ranks' local means."""
         if self.mesh is None:
             return float(loss)
-        return float(self.mesh.reduce_sum(loss.float().reshape(1))[0]
+        return float(self.mesh.data_sum(loss.float().reshape(1))[0]
                       / self.mesh.data)
 
     def lazy_overflow(self, state: dict) -> int:

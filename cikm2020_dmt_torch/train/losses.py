@@ -195,10 +195,12 @@ def l2_regularization(cfg: DMTConfig, params: dict, batch: dict,
     """``0.5 * wnd_wd * sum(w^2)`` over every dense kernel (a ``"w"``
     leaf), plus ``l2_emb_lambda / batch_size`` times half the squared norm
     of each table row the batch touches, counted once per row (a presence
-    vector per table; ids outside a table's rows are dropped).  On a data
-    ``mesh`` (replicated tables) the presence is the global batch's: one
-    max-``all_reduce`` of the ranks' vectors, so each rank's term is the
-    whole batch's, as the JAX term over the sharded batch."""
+    vector per table; ids outside a table's rows are dropped).  On a
+    ``mesh`` the presence is the global batch's: one max-``all_reduce`` of
+    the ranks' vectors, so each rank's term is the whole batch's, as the
+    JAX term over the sharded batch.  A model-split table (``emb[name]``
+    the rank's share) adds its share's term, summed over the model group
+    with the identity backward."""
     from ..data.pipeline import IDS
 
     reg = torch.zeros((), dtype=torch.float32)
@@ -232,8 +234,24 @@ def l2_regularization(cfg: DMTConfig, params: dict, batch: dict,
             flat = mesh.all_reduce(torch.cat(list(touched.values())), "max")
             touched = dict(zip(touched, flat.split(
                 [v.shape[0] for v in touched.values()])))
-        total = sum(0.5 * (presence * emb[name].float().square().sum(-1))
-                    .sum() for name, presence in touched.items())
+        split = {}
+        if mesh is not None and mesh.model > 1:
+            from ..parallel.embedding_shard import (model_split_tables,
+                                                    shard_lo)
+            split = model_split_tables(cfg, mesh.size, mesh.model)
+
+        def term(name, presence):
+            table = emb[name]
+            if name in split:
+                lo = shard_lo(mesh, *split[name])
+                presence = presence[lo:lo + table.shape[0]]
+            return 0.5 * (presence * table.float().square().sum(-1)).sum()
+
+        total = sum(term(n, p) for n, p in touched.items() if n not in split)
+        shares = [term(n, p) for n, p in touched.items() if n in split]
+        if shares:
+            from ..core.mesh import model_axis_sum
+            total = total + model_axis_sum(sum(shares), mesh)
         reg = reg + total * cfg.l2_emb_lambda / cfg.batch_size
     return reg
 

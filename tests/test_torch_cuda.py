@@ -1123,3 +1123,92 @@ def test_mesh_step_on_card(cuda_device):
             "fused_block_fwd": 3, "fused_block_bwd": 3, "attention_fwd": 0,
             "attention_bwd": 0, "sorted_segsum": 4, "update_rows": 4,
             "update_rows_3d": 4}
+
+
+@pytest.mark.cuda
+def test_sharded_write_back_sentinel_on_card(cuda_device):
+    """``lazy_adam_rows_sharded``'s write-back on the card, model index 1
+    of 2 holding rows [64, 128) of a 128-row table: ids of the other
+    share, sentinels past R and the id one past the share (which in the
+    [2, R, D] moments would name row 0 of v) are all dropped; the owned
+    rows are the plain version's."""
+    from cikm2020_dmt_torch.core.mesh import Mesh
+    from cikm2020_dmt_torch.train.lazy import lazy_adam_rows_sharded
+
+    gen = torch.Generator().manual_seed(5)
+    R, D = 128, 32
+    table = torch.randn(R // 2, D, generator=gen)
+    mv = torch.rand(2, R // 2, D, generator=gen)
+    # ascending: 3 rows of the other share, 4 owned, the one past the
+    # share (logical 128 = R: the lazy sentinel) and sentinels beyond
+    uids = torch.tensor([0, 31, 63, 64, 65, 100, 127, 128, 129, 130])
+    rows = torch.randn(len(uids), D, generator=gen)
+    g = torch.randn(len(uids), D, generator=gen)
+    count = torch.tensor(3)
+
+    def run(dev):
+        mesh = Mesh(1, 2, 1, torch.device(dev), "gloo")
+        t, m = table.clone().to(dev), mv.clone().to(dev)
+        lazy_adam_rows_sharded(mesh, t, m, uids.to(dev), rows.to(dev),
+                               g.to(dev), count.to(dev),
+                               lambda c: torch.tensor(1e-3, device=dev), R,
+                               1)
+        return t.cpu(), m.cpu()
+
+    t_card, mv_card = run(cuda_device)
+    t_cpu, mv_cpu = run("cpu")
+    owned = torch.tensor([0, 1, 36, 63])          # 64, 65, 100, 127
+    others = torch.ones(R // 2, dtype=torch.bool)
+    others[owned] = False
+    assert torch.equal(t_card[others], table[others])
+    assert torch.equal(mv_card[:, others], mv[:, others])
+    torch.testing.assert_close(t_card, t_cpu, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(mv_card, mv_cpu, rtol=1e-6, atol=1e-9)
+    assert not torch.equal(t_card[owned], table[owned])
+
+
+@pytest.mark.cuda
+def test_model_axis_step_on_card(cuda_device):
+    """A ``(1, 2)`` mesh of two gloo ranks sharing the card, one step of
+    ``conf/dmt.conf``'s model (Sku cut to 20,000 rows, lazy and full-mesh;
+    Cid3, Brand and Shopid cut to 5,000 rows, dense and split over the
+    model group) at the one-process step's 256 rows: the loss within
+    1e-4, the replicated leaves the same bits on both ranks, and on each
+    rank the block's 3 + 3 launches, Sku's two row writes and 16 segment
+    sums: Sku's overlay and the 15 seq lookups of the split tables that
+    take the exchange (the three of length 10 overflow their budget of
+    320 ids and take the grid sum; a CPU rehearsal of this batch counts
+    the same)."""
+    import dataclasses
+
+    import chip_smoke as cs
+    import torch_mesh_workers as workers
+    from cikm2020_dmt_torch.core.mesh import run_ranks
+    from cikm2020_dmt_torch.metrics.streaming import task_metrics_init
+    from cikm2020_dmt_torch.train.loop import Trainer
+
+    cfg = _lattice_cfg("mmoe_transformer_unbias")
+    cfg = dataclasses.replace(
+        cfg, shard_rows_threshold=1000, dedup_rows_threshold=10000,
+        mesh_model=2, embeddings=tuple(
+            dataclasses.replace(e, id_size=20000) if e.table == "Sku" else e
+            for e in cfg.embeddings))
+    batch = cs.synthetic_batch(cfg, 256, 3, "cpu")
+    out = run_ranks(workers.card_mesh_step, 2, cfg, batch, timeout_s=300)
+    tr = Trainer(cfg, device=cuda_device)
+    st = tr.init_state(torch.Generator(device=cuda_device).manual_seed(0))
+    _, _, loss = tr.train_step(st, task_metrics_init(cuda_device),
+                               {k: v.to(cuda_device)
+                                for k, v in batch.items()},
+                               torch.Generator(device=cuda_device))
+    for o in out:
+        assert o["full_mesh"] == ["Sku"]
+        assert o["split"] == ["Brand", "Cid3", "Shopid", "bias:Cid3"]
+        assert abs(o["loss"] - float(loss)) <= 1e-4 * abs(float(loss))
+        assert o["counts"] == {
+            "fused_block_fwd": 3, "fused_block_bwd": 3, "attention_fwd": 0,
+            "attention_bwd": 0, "sorted_segsum": 16, "update_rows": 1,
+            "update_rows_3d": 1}
+    mine, other = out[0]["replicated"], out[1]["replicated"]
+    assert set(mine) == set(other)
+    assert [k for k in mine if not torch.equal(mine[k], other[k])] == []

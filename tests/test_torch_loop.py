@@ -390,13 +390,22 @@ def test_cli_train_then_resume(shards, tmp_path):
 
 
 def test_num_processes_raises(tmp_path):
-    """Several processes run (``tests/test_torch_mesh*.py``); what still
-    raises is the model axis (``mesh_model > 1``), and ``--num_processes``
+    """Several processes run (``tests/test_torch_mesh*.py``), the model
+    axis too: a ``Trainer`` takes the flagship on a ``(1, 2)`` mesh, Sku
+    full-mesh, Brand and Shopid split over the model group.  A mesh that
+    does not cover the processes raises, and so does ``--num_processes``
     without this process's id."""
+    from cikm2020_dmt_torch.core.mesh import Mesh
+    from cikm2020_dmt_torch.parallel.embedding_shard import \
+        ShardedEmbeddingEngine
     cfg = dataclasses.replace(DMTConfig.from_ini(
         str(ROOT / "conf" / "dmt.conf")), mesh_model=2)
-    with pytest.raises(NotImplementedError, match="model axis"):
-        build_mesh(cfg, world=2, device="cpu", rank=0)
+    tr = Trainer(cfg, mesh=Mesh(1, 2, 0, torch.device("cpu"), "gloo"))
+    assert isinstance(tr.model.engine, ShardedEmbeddingEngine)
+    assert set(tr.model.engine.split) == {"Brand", "Shopid"}
+    assert list(tr.full_mesh) == ["Sku"] and not tr.sharded
+    with pytest.raises(ValueError, match="does not cover"):
+        build_mesh(cfg, world=3, device="cpu", rank=0)
     with pytest.raises(ValueError, match="process_id"):
         cli_train.main(["--conf_file", str(ROOT / "conf" / "dmt.conf"),
                         "--num_processes", "2", "--device", "cpu"])

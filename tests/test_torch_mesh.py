@@ -211,11 +211,18 @@ def test_plan_gates_like_jax():
 
 
 def test_mesh_model_refused():
+    """Nothing refuses the model axis now: ``mesh_model = 2`` builds on two
+    ranks (with its groups) and a ``Trainer`` takes it; a mesh that does
+    not cover the processes still raises."""
     cfg = port_cfg(mesh_config(mesh_model=2))
-    with pytest.raises(NotImplementedError, match="model axis"):
-        build_mesh(cfg, world=2, device="cpu", rank=0)
-    with pytest.raises(NotImplementedError, match="model axis"):
-        Trainer(cfg, mesh=Mesh(1, 2, 0, torch.device("cpu"), "gloo"))
+    out = run_ranks(workers.mesh_shape, 2, cfg, timeout_s=SPAWN_TIMEOUT,
+                    threads=1)
+    assert [o["shape"] for o in out] == [(1, 2, 0, 0), (1, 2, 0, 1)]
+    assert all(o["model_sum"] == 3.0 and o["data_sum"] == 1.0 for o in out)
+    Trainer(cfg, mesh=Mesh(1, 2, 0, torch.device("cpu"), "gloo"))
+    with pytest.raises(ValueError, match="does not cover"):
+        build_mesh(port_cfg(mesh_config(mesh_model=3)), world=2,
+                   device="cpu", rank=0)
 
 
 def test_mesh_must_cover_the_world():
