@@ -455,7 +455,7 @@ def serve_phase(cfg, dev) -> tuple[dict, dict]:
                                      f"{dname}: {err}")
             max_err = max(max_err, err)
             if dtype != torch.float32:
-                continue  # the main path runs float32 (compute_dtype)
+                continue  # conf/dmt.conf serves in float32 (bf16: bf16_phase)
             ms = cuda_ms(lambda: block.fused_encode_decode(ep, dp, **kw), 50)
             plain = cuda_ms(
                 lambda: block.fused_encode_decode_ref(ep, dp, **kw), 20)
@@ -842,20 +842,22 @@ def timed_steps(tr, state, metrics, batches, gen, steps):
             start.elapsed_time(end) / steps, wall_ms)
 
 
-def train_phase(cfg, dev, expected: dict) -> dict:
-    """The training path at batch 2048 with the config's dropout: 3
-    warm-up steps, 10 timed steps (counted: exactly ``expected`` launches
-    per step, every other kernel none), then 20 steps on one batch whose
-    loss must fall.  Returns the step's numbers, and the trainer with its
-    state, metrics, dropout generator and batches for what runs after
-    it."""
+def train_phase(cfg, dev, expected: dict, batch: int = None,
+                steps: int = 10) -> dict:
+    """The training path at ``batch`` (default ``TRAIN_BATCH``) with the
+    config's dropout: 3 warm-up steps, ``steps`` timed steps (counted:
+    exactly ``expected`` launches per step, every other kernel none), then
+    20 steps on one batch whose loss must fall.  Returns the step's
+    numbers, and the trainer with its state, metrics, dropout generator
+    and batches for what runs after it."""
     from cikm2020_dmt_torch.metrics.streaming import (task_metrics_init,
                                                       task_metrics_values)
     from cikm2020_dmt_torch.train.loop import Trainer
 
+    batch = batch or TRAIN_BATCH
     tr = Trainer(cfg, device=dev)
     state = tr.init_state(torch.Generator(device=dev).manual_seed(SEED))
-    batches = [synthetic_batch(cfg, TRAIN_BATCH, SEED + 100 + i, dev)
+    batches = [synthetic_batch(cfg, batch, SEED + 100 + i, dev)
                for i in range(4)]
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     metrics = task_metrics_init(dev)
@@ -864,13 +866,12 @@ def train_phase(cfg, dev, expected: dict) -> dict:
         state, metrics, _ = tr.train_step(state, metrics, batches[i % 4], gen)
     torch.cuda.synchronize()
 
-    # ---- the main path: 10 timed steps, counted ----
-    steps = 10
+    # ---- the main path: timed steps, counted ----
     state, metrics, losses, counts, step_ms, wall_ms = timed_steps(
         tr, state, metrics, batches, gen, steps)
-    eps = TRAIN_BATCH / (step_ms / 1e3)
+    eps = batch / (step_ms / 1e3)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    log(f"training path: {steps} steps at batch {TRAIN_BATCH}, dropout "
+    log(f"training path: {steps} steps at batch {batch}, dropout "
         f"{cfg.transformer.dropout_rate}: launches {json.dumps(counts)}")
     log(f"training step: {step_ms:.3f} ms (CUDA events; host clock "
         f"{wall_ms:.3f} ms), {eps:.1f} examples/s, peak memory "
@@ -2466,9 +2467,9 @@ def segsum_phase(cfg, tr, state, batch, counts, dev):
 
 def update_phase(state, col, counts, dev):
     """The row writes against their plain versions at the main path's
-    shapes: the bf16 [5M, 32] Sku table with U rows (sentinels and five
-    negative ids among them) and its float32 [2, 5M, 32] moments with 2U
-    rows; compared exactly."""
+    shapes: the [5M, 32] Sku table (bf16; float32 under ``grid_bf16``)
+    with U rows (sentinels and five negative ids among them) and its
+    float32 [2, 5M, 32] moments with 2U rows; compared exactly."""
     from cikm2020_dmt_torch.ops import scatter_rows as sr
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
@@ -2485,7 +2486,7 @@ def update_phase(state, col, counts, dev):
     entries = []
     for name, fn, ref, dst, i, r, k, elem, src, replaces in (
             ("update_rows", sr.update_rows, sr.update_rows_ref, table, ids,
-             rows, keep, 2, "update_rows.cu",
+             rows, keep, table.element_size(), "update_rows.cu",
              "cikm2020_dmt_tpu/ops/scatter_rows.py:45"),
             ("update_rows_3d", sr.update_rows_3d, sr.update_rows_3d_ref,
              state["lazy_opt"]["Sku"]["mv"], ids2, rows2, keep2, 4,
@@ -4338,6 +4339,401 @@ def axis_phase(cfg, dev, expected: dict, d: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The bfloat16 training path as bench.py configures it
+# ---------------------------------------------------------------------------
+
+BF16_BATCH = 4096           # bench.py's batch
+BF16_STEPS = 10             # timed steps at BF16_BATCH
+BF16_EVAL_TOL = 1e-4        # eval and request scores, beside 2 x own
+LOSS_REL = 1e-5             # the loss rule's relative term
+BF16_STEP = 2.0 ** -7       # one bfloat16 step of a value
+
+
+def bench_config(grid_bf16: bool = False, sku_rows: int = 5_000_000,
+                 rows: int = 2048):
+    """``bench.py``'s config, rebuilt with the port's parsers (the card has
+    no JAX, so ``__graft_entry__._demo_config`` cannot be imported there):
+    the flagship mmoe_transformer_unbias with Sku ``sku_rows`` x 32 and
+    Cid3, Brand and Shopid of ``rows`` rows, batch 4096, bfloat16 compute
+    and the default ``table_bf16_threshold`` (500: every table of at least
+    500 rows stored bfloat16).  ``grid_bf16``: the tables float32
+    (threshold 0) and the lazy tables' union grid bfloat16."""
+    from cikm2020_dmt_torch.core.config import (DMTConfig,
+                                                parse_attention_pairs,
+                                                parse_embedding_spec,
+                                                parse_ts_features)
+
+    sku, c3 = sku_rows, rows
+    emb = (
+        f"Sku:{sku}:32:item_fea_sku:i#Cid2:500:8:item_c2:i"
+        f"#Cid3:{c3}:8:item_c3:i#Brand:{rows}:16:item_brand:i"
+        f"#Shopid:{rows}:16:item_shop:i#Sku:{sku}:32:clk_seq_sku_7d_50:u"
+        "#TimeClick:24:8:clk_seq_ts_7d_50:u#Cid2:500:8:clk_seq_c2_7d_50:u"
+        f"#Cid3:{c3}:8:clk_seq_c3_7d_50:u"
+        f"#Brand:{rows}:16:clk_seq_brand_7d_50:u"
+        f"#Shopid:{rows}:16:clk_seq_shop_7d_50:u"
+        f"#Sku:{sku}:32:ord_seq_sku_12m_10:u"
+        "#TimeOrder:24:8:ord_seq_ts_12m_10:u#Cid2:500:8:ord_seq_c2_12m_10:u"
+        f"#Cid3:{c3}:8:ord_seq_c3_12m_10:u"
+        f"#Brand:{rows}:16:ord_seq_brand_12m_10:u"
+        f"#Shopid:{rows}:16:ord_seq_shop_12m_10:u"
+        f"#Sku:{sku}:32:cart_seq_sku_12m_10:u"
+        "#TimeCart:24:8:cart_seq_ts_12m_10:u#Cid2:500:8:cart_seq_c2_12m_10:u"
+        f"#Cid3:{c3}:8:cart_seq_c3_12m_10:u"
+        f"#Brand:{rows}:16:cart_seq_brand_12m_10:u"
+        f"#Shopid:{rows}:16:cart_seq_shop_12m_10:u")
+    pairs = "|".join(
+        f"{s}_sku_{w}:item_fea_sku#{s}_c2_{w}:item_c2#{s}_c3_{w}:item_c3"
+        f"#{s}_brand_{w}:item_brand#{s}_shop_{w}:item_shop"
+        for s, w in (("clk_seq", "7d_50"), ("ord_seq", "12m_10"),
+                     ("cart_seq", "12m_10")))
+    emb_bias = (f"Cid2:500:5:item_c2:i#Cid3:{c3}:5:item_c3:i"
+                f"#Cid2:500:5:near_expo_seq_c2:u"
+                f"#Cid3:{c3}:5:near_expo_seq_c3:u")
+    return DMTConfig(
+        model_type="mmoe_transformer_unbias",
+        embeddings=parse_embedding_spec(emb),
+        embeddings_bias=parse_embedding_spec(emb_bias),
+        attention_pairs=parse_attention_pairs(pairs),
+        attention_ts=parse_ts_features(
+            "clk_seq_ts_7d_50|ord_seq_ts_12m_10|cart_seq_ts_12m_10"),
+        batch_size=BF16_BATCH, validate_step=10**9,
+        compute_dtype="bfloat16",
+        table_bf16_threshold=0 if grid_bf16 else 500, grid_bf16=grid_bf16)
+
+
+def float32_reference(cfg):
+    """The float32 step of a bfloat16 config: float32 compute and tables,
+    no bfloat16 grid or cotangent."""
+    return dataclasses.replace(cfg, compute_dtype="float32",
+                               table_bf16_threshold=0, grid_bf16=False,
+                               onehot_bwd_bf16=False)
+
+
+def _widened(tree):
+    from cikm2020_dmt_torch.nn.layers import tree_map
+    return tree_map(lambda t: (t.float() if t.dtype == torch.bfloat16
+                               else t).cpu().clone(), tree)
+
+
+def bf16_card_vs_cpu_step(cfg, dev, batch_size: int = CHECK_BATCH) -> dict:
+    """One step of the bfloat16 config ``cfg`` at ``batch_size`` with
+    dropout off, on the card and on a CPU copy of the same state, and the
+    port's float32 step on the CPU from that state (``float32_reference``,
+    tables widened).  Every gradient of the step comes out of bfloat16
+    products, so all are held by the bfloat16 rule of the block kernels:
+    each leaf's gradient (Adam's first m is 0.1 g; the lazy tables on the
+    batch's rows), norm-wise, within ``BWD_BF16_FACTOR`` times the CPU
+    bfloat16 step's distance from the float32 step, plus ``BWD_TOL_F32``;
+    leaves whose float32 gradient is below 1e-6 of the largest |value| of
+    all leaves (zero in exact arithmetic) are skipped.  The loss within
+    twice the CPU bfloat16 loss's distance from the float32 loss, plus
+    1e-5 relative; each param within 2 lr plus one bfloat16 step of the
+    leaf's largest |value|, in the CPU's type (under ``grid_bf16``
+    float32 for the lazy tables)."""
+    from cikm2020_dmt_torch.metrics.streaming import task_metrics_init
+    from cikm2020_dmt_torch.nn.layers import tree_map
+    from cikm2020_dmt_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    cfg0 = no_dropout(cfg)
+    card = Trainer(cfg0, device=dev)
+    state = card.init_state(torch.Generator(device=dev).manual_seed(SEED))
+    states = {"card": state,
+              "cpu": tree_map(lambda t: t.cpu().clone(), state),
+              "f32": _widened(state)}
+    trainers = {"card": card, "cpu": Trainer(cfg0, device="cpu"),
+                "f32": Trainer(float32_reference(cfg0), device="cpu")}
+    batch = synthetic_batch(cfg, batch_size, SEED + 10, dev)
+    host = {k: v.cpu() for k, v in batch.items()}
+    out = {}
+    for name, tr in trainers.items():
+        b = batch if name == "card" else host
+        d = b["mask"].device
+        s, _, loss = tr.train_step(states[name], task_metrics_init(d), b,
+                                   torch.Generator(device=d))
+        out[name] = (s, float(loss))
+    torch.cuda.synchronize()
+    rows = {t.name: torch.unique(batch_ids(cfg, host, t.name))
+            for t in card.lazy_plan}
+
+    def grads(s):
+        g = {p: t.detach().cpu().double() for p, t in _leaves(s["opt"]["m"])}
+        for name, sub in s["lazy_opt"].items():
+            g["lazy/" + name] = sub["mv"][0].cpu().double()[rows[name]]
+        return g
+
+    G = {k: grads(v[0]) for k, v in out.items()}
+    top = max(float(t.abs().max()) for t in G["f32"].values())
+    g_ratio, checked = 0.0, 0
+    for path, r in G["f32"].items():
+        if float(r.abs().max()) < 1e-6 * top:
+            continue
+        b16, got = G["cpu"][path], G["card"][path]
+        own = float((b16 - r).norm() / r.norm())
+        err = float((got - b16).norm() / b16.norm())
+        tol = BWD_BF16_FACTOR * own + BWD_TOL_F32
+        g_ratio = max(g_ratio, err / tol)
+        checked += 1
+        if not err <= tol:
+            raise AssertionError(f"bf16 card vs CPU gradient {path}: "
+                                 f"norm-wise {err:.3e}, CPU bf16 vs f32 "
+                                 f"{own:.3e} (tol {tol:.3e})")
+    lr = cfg.learning_rate[0]
+    p_ratio = 0.0
+    want = dict(_leaves(out["cpu"][0]["params"]))
+    for path, a in _leaves(out["card"][0]["params"]):
+        b = want[path]
+        if a.dtype != b.dtype:
+            raise AssertionError(f"bf16 card vs CPU param {path}: dtype "
+                                 f"{a.dtype} vs {b.dtype}")
+        a, b = a.detach().cpu().float(), b.float()
+        p_tol = 2 * lr + BF16_STEP * float(b.abs().max())
+        err = float((a - b).abs().max())
+        p_ratio = max(p_ratio, err / p_tol)
+        if not err <= p_tol:
+            raise AssertionError(f"bf16 card vs CPU param {path}: {err:.3e} "
+                                 f"(tol {p_tol:.3e})")
+    lc, lb, lf = out["card"][1], out["cpu"][1], out["f32"][1]
+    l_tol = BWD_BF16_FACTOR * abs(lb - lf) + LOSS_REL * abs(lb)
+    res = {"loss": lc, "loss_cpu": lb, "loss_f32": lf,
+           "loss_err_over_tol": abs(lc - lb) / l_tol,
+           "grad_err_over_tol": g_ratio, "leaves_checked": checked,
+           "param_err_over_tol": p_ratio,
+           "seconds": time.perf_counter() - t0}
+    log(f"bf16 card vs CPU step ({'grid_bf16' if cfg.grid_bf16 else 'bf16 '
+        'tables'}), batch {batch_size}, dropout off: loss {lc:.6f}, CPU "
+        f"bf16 {lb:.6f}, CPU f32 {lf:.6f} ({res['loss_err_over_tol']:.3f} "
+        f"of its tolerance); gradients {g_ratio:.3f} of 2 x CPU bf16 vs f32 "
+        f"+ 1e-2 at worst over {checked} leaves; params {p_ratio:.3f} of 2 "
+        f"lr + one bf16 step; {res['seconds']:.1f}s")
+    if not abs(lc - lb) <= l_tol:
+        raise AssertionError(f"bf16 card vs CPU loss: {lc} vs {lb} (f32 "
+                             f"{lf}, tol {l_tol})")
+    if cfg.grid_bf16 and any(
+            out["card"][0]["params"]["emb"][t.name].dtype != torch.float32
+            for t in card.lazy_plan):
+        raise AssertionError("grid_bf16: a lazy table left float32")
+    return res
+
+
+def bf16_eval_serve_check(cfg, params, dev) -> dict:
+    """One eval batch of ``BF16_BATCH`` (``run_eval``) and one request of
+    ``CANDIDATES`` (``Scorer``) of the bfloat16 config on ``params``:
+    counted (3 block-forward launches each, nothing else), and on the card
+    against the port's CPU path on the same weights, within twice the CPU
+    bfloat16 path's distance from its float32 path (weights widened) plus
+    ``BF16_EVAL_TOL``."""
+    from cikm2020_dmt_torch.data.pipeline import Batch
+    from cikm2020_dmt_torch.models.zoo import build_model
+    from cikm2020_dmt_torch.nn.layers import tree_map
+    from cikm2020_dmt_torch.serve.export import Scorer, norm_constants
+    from cikm2020_dmt_torch.train import evaluate
+
+    t0 = time.perf_counter()
+    f32 = float32_reference(cfg)
+    host = tree_map(lambda t: t.detach().cpu().clone(), params)
+    wide_p = _widened(params)
+    n = BF16_BATCH
+    batch = synthetic_batch(cfg, n, SEED + 300, dev)
+    hb = {k: v.cpu() for k, v in batch.items()}
+
+    def scores(c, p, b, device):
+        _, _, clk, ord_ = evaluate.run_eval(
+            c, build_model(c), p, None, n, data_iter=[Batch(b, [b""] * n)],
+            device=device)
+        return {"p_clk": clk, "p_ord": ord_}
+
+    nrng = np.random.default_rng(SEED)
+    scale, const_vec = norm_constants(
+        nrng.normal(0.5, 1.0, cfg.feature_dimension),
+        nrng.uniform(0.1, 3.0, cfg.feature_dimension))
+    req = make_requests(cfg, CANDIDATES, REQUEST_LENS[:1], SEED)[0]
+    out, counts = {}, {}
+    for what in ("eval", "request"):
+        reset_counts()
+        if what == "eval":
+            card = scores(cfg, params, batch, dev)
+        else:
+            card = Scorer(cfg, params, scale, const_vec)(req)
+        torch.cuda.synchronize()
+        counts[what] = read_counts()
+        want = {k: (3 if k == "fused_block_fwd" else 0) for k in counts[what]}
+        if counts[what] != want:
+            raise AssertionError(f"bf16 {what} launched {counts[what]}, "
+                                 f"expected {want}")
+        if what == "eval":
+            cpu, ref = scores(cfg, host, hb, "cpu"), scores(f32, wide_p, hb,
+                                                            "cpu")
+        else:
+            cpu = Scorer(cfg, host, scale, const_vec, device="cpu")(req)
+            ref = Scorer(f32, wide_p, scale, const_vec, device="cpu")(req)
+        worst = 0.0
+        for k in ref:
+            a, b, r = (np.asarray(x[k], np.float64) for x in (card, cpu, ref))
+            if not np.isfinite(a).all():
+                raise AssertionError(f"bf16 {what} {k}: not finite")
+            err, own = float(np.abs(a - b).max()), float(np.abs(b - r).max())
+            tol = BWD_BF16_FACTOR * own + BF16_EVAL_TOL
+            worst = max(worst, err / tol)
+            log(f"bf16 {what} card vs CPU {k}: max |diff| {err:.3e}, CPU "
+                f"bf16 vs f32 {own:.3e} (tol {tol:.3e})")
+            if not err <= tol:
+                raise AssertionError(f"bf16 {what} {k}: card vs CPU {err}, "
+                                     f"tol {tol}")
+        out[what] = worst
+    res = {"counts": counts, "err_over_tol": out,
+           "seconds": time.perf_counter() - t0}
+    log(f"bf16 eval batch of {n} and request of {CANDIDATES}: "
+        f"{json.dumps(out)} of their tolerances; {res['seconds']:.1f}s")
+    return res
+
+
+def bf16_block_times(params, dev, B: int = BF16_BATCH) -> dict:
+    """The block kernels in bfloat16 at the bfloat16 path's shapes (B,
+    T = 50 and 10, dropout 0.1): the forward against its plain version
+    (``KERNEL_TOL``), the backward against the float32 plain version by
+    the bfloat16 rule, then each timed alone beside its plain version and
+    its bounds (bytes of bf16 operands; operations at the float32 FMA peak
+    and at the bf16 tensor-core peak) and summed per step (2 launches at
+    T=50, 1 at T=10)."""
+    from cikm2020_dmt_torch.ops import block
+
+    kgen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    seed = torch.tensor([SEED + 7], dtype=torch.int32, device=dev)
+    recs = {"fwd": [], "bwd": []}
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for T, p in ((50, params["trans"]["seq0"]), (10, params["trans"]["seq2"])):
+        ep, dp = p["enc"][0], p["dec"][0]
+        ew, dw = block.pack_weights(ep), block.pack_weights(dp)
+        kw = block_inputs(T, torch.bfloat16, kgen, dev, B=B)
+        kw.update(train=True, rate=DROPOUT, seed=seed)
+        with torch.no_grad():
+            got = block.fused_encode_decode(ep, dp, **kw)
+            ref = block.fused_encode_decode_ref(ep, dp, **kw)
+        g = torch.randn(got.shape, generator=kgen, device=dev).to(
+            torch.bfloat16)
+        gb = block.fused_block_bwd(ew, dw, g=g, **kw)
+        rb = block.fused_block_bwd_ref(ew, dw, g=g, **kw)
+        kw32 = dict(kw, enc_in=kw["enc_in"].float(),
+                    dec_in=kw["dec_in"].float())
+        r32 = block.fused_block_bwd_ref(ew, dw, g=g.float(), **kw32)
+        torch.cuda.synchronize()
+        f_err = float((got.float() - ref.float()).abs().max())
+        rel, absd = _bwd_err(gb, r32)
+        plain_rel, _ = _bwd_err(rb, r32)
+        tol = BWD_BF16_FACTOR * plain_rel + BWD_TOL_F32
+        log(f"block bf16 B={B} T={T}: forward max |diff| {f_err:.3e} (tol "
+            f"{KERNEL_TOL[torch.bfloat16]}); backward norm-wise {rel:.3e} "
+            f"vs float32 plain (plain bf16 {plain_rel:.3e}, tol {tol:.3e})")
+        if not (torch.isfinite(got.float()).all()
+                and f_err <= KERNEL_TOL[torch.bfloat16]):
+            raise AssertionError(f"bf16 block forward disagrees: {f_err}")
+        if not rel <= tol:
+            raise AssertionError(f"bf16 block backward disagrees: {rel}")
+        errs["fwd"] = max(errs["fwd"], f_err)
+        errs["bwd"] = max(errs["bwd"], float(_bwd_err(gb, rb)[1]))
+        del ref, rb, r32
+        with torch.no_grad():
+            f_ms = cuda_ms(lambda: block.fused_encode_decode(ep, dp, **kw), 10)
+            f_plain = cuda_ms(lambda: block.fused_encode_decode_ref(
+                ep, dp, **kw), 3, warmup=1)
+        b_ms = cuda_ms(lambda: block.fused_block_bwd(ew, dw, g=g, **kw), 5,
+                       warmup=1)
+        b_plain = cuda_ms(lambda: block.fused_block_bwd_ref(ew, dw, g=g, **kw),
+                          3, warmup=1)
+        for key, ms, plain, ops, nbytes in (
+                ("fwd", f_ms, f_plain, block.block_flops(B, T, 80, 320),
+                 block.block_bytes(B, T, 80, 320, 2)),
+                ("bwd", b_ms, b_plain, block.block_bwd_flops(B, T, 80, 320),
+                 block.block_bwd_bytes(B, T, 80, 320, 2))):
+            tc = max(block.block_tc_bound_ms(ops, torch.bfloat16),
+                     nbytes / PEAK_HBM_BYTES * 1e3)
+            fma = bound(ops, nbytes)
+            recs[key].append({"B": B, "T": T, "dtype": "bfloat16",
+                              "dropout": DROPOUT,
+                              "per_step": 2 if T == 50 else 1, "ms": ms,
+                              "plain_ms": plain, "bound_ms": tc,
+                              "bound_by": ("operations" if tc > nbytes
+                                           / PEAK_HBM_BYTES * 1e3
+                                           else "bytes"),
+                              "fma_bound_ms": fma[0], "flops": ops,
+                              "bytes": nbytes})
+            log(f"block bf16 {key} B={B} T={T}: {ms:.4f} ms (plain "
+                f"{plain:.4f}), bound {tc:.4f} ms at the bf16 tensor-core "
+                f"peak and HBM rate, {fma[0]:.4f} ms at the f32 FMA peak")
+        del gb, g, kw
+        torch.cuda.empty_cache()
+    out = {}
+    for key, shapes in recs.items():
+        def per_step(k):
+            return sum(r[k] * r["per_step"] for r in shapes)
+        out[key] = {"shapes": shapes, "max_abs_err": errs[key],
+                    "ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
+                    "bound_ms": per_step("bound_ms"),
+                    "fma_bound_ms": per_step("fma_bound_ms"),
+                    "library_ms": None,
+                    "unit": f"ms per training step: 2 launches at T=50 + 1 "
+                            f"at T=10, B={B}, bf16, dropout {DROPOUT}",
+                    "bound_note": "bound_ms: the larger of the bf16 "
+                                  "operands' bytes over the HBM rate and "
+                                  "the operations over the bf16 dense "
+                                  "tensor-core peak (989 TFLOP/s); "
+                                  "fma_bound_ms at the f32 FMA peak"}
+    return out
+
+
+def bf16_phase(dev) -> dict:
+    """The bfloat16 training path as ``bench.py`` configures it
+    (``bench_config``): (a) bf16 tables of at least 500 rows, (b)
+    ``grid_bf16`` (float32 tables, bfloat16 union grid).  Each: the card
+    against the CPU for one step (``bf16_card_vs_cpu_step``), then
+    ``train_phase`` at ``BF16_BATCH`` (3 warm-up and ``BF16_STEPS`` timed
+    steps over 4 batches with dropout 0.1, exactly the flagship's launches
+    a step, then 20 steps on one batch whose loss falls).  (a) also
+    evaluates one batch and serves one request against the CPU
+    (``bf16_eval_serve_check``) and times the block kernels in bfloat16
+    (``bf16_block_times``); (b) runs the segment sum on its bfloat16
+    cotangent of a float32 table (``segsum_phase``) and the row writes on
+    its float32 rows (``update_phase``)."""
+    t0 = time.perf_counter()
+    out = {"paths": {}, "counts": {}}
+    for name, grid in (("bf16", False), ("grid_bf16", True)):
+        cfg = bench_config(grid_bf16=grid)
+        check = bf16_card_vs_cpu_step(cfg, dev)
+        torch.cuda.empty_cache()
+        train = train_phase(cfg, dev, EXPECTED_PER_STEP["dmt"],
+                            batch=BF16_BATCH, steps=BF16_STEPS)
+        out["counts"][name] = train["counts"]
+        rec = {k: train[k] for k in ("step_ms", "wall_ms", "examples_per_s",
+                                     "peak_gb")}
+        rec["card_vs_cpu"] = check
+        if grid:
+            seg, col = segsum_phase(cfg, train["trainer"], train["state"],
+                                    train["batches"][0], train["counts"],
+                                    dev)
+            out["segsum"] = seg
+            out["rows"] = update_phase(train["state"], col, train["counts"],
+                                       dev)
+            del col
+        else:
+            params = train["state"]["params"]
+            rec["eval_serve"] = bf16_eval_serve_check(cfg, params, dev)
+            out["eval_serve_counts"] = rec["eval_serve"]["counts"]
+            out["blocks"] = bf16_block_times(params, dev)
+            del params
+        out["paths"][name] = rec
+        del train
+        torch.cuda.empty_cache()
+        log(f"bf16 phase {name}: step {rec['step_ms']:.3f} ms (CUDA events; "
+            f"host clock {rec['wall_ms']:.3f} ms), "
+            f"{rec['examples_per_s']:.1f} examples/s at batch {BF16_BATCH}, "
+            f"peak memory {rec['peak_gb']:.2f} GB")
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -4349,6 +4745,9 @@ def main() -> int:
     t_main = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bfloat16 products summed in float32 (the port's entry points set it
+    # too: models/base.float32_sums)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda", 0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
@@ -4494,7 +4893,33 @@ def main() -> int:
         rec["launches"] += n
         rec.setdefault("launches_by_path", {})["zoo"] = n
 
+    # ---- the bfloat16 training path as bench.py configures it ----
+    torch.cuda.empty_cache()
+    bf = bf16_phase(dev)
+    for rec in [fwd, bwd, seg] + rows:
+        by = rec.setdefault("launches_by_path", {})
+        for path, c in bf["counts"].items():
+            rec["launches"] += c[rec["name"]]
+            by[path] = c[rec["name"]]
+    n_ev = sum(c["fused_block_fwd"] for c in bf["eval_serve_counts"].values())
+    fwd["launches"] += n_ev
+    fwd["launches_by_path"]["bf16_eval_serve"] = n_ev
+    fwd["bf16"], bwd["bf16"] = bf["blocks"]["fwd"], bf["blocks"]["bwd"]
+    keep = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err", "shape")
+    seg["grid_bf16"] = {k: bf["segsum"][k] for k in keep + ("float32",)}
+    for rec, r in zip(rows, bf["rows"]):
+        rec["float32_table"] = {k: r[k] for k in keep}
+
     smi = card_name_and_limit()
+    log("bf16 (bench.py's config, batch "
+        f"{BF16_BATCH}): " + "; ".join(
+            f"{name} step {p['step_ms']:.3f} ms, {p['examples_per_s']:.1f} "
+            f"examples/s, peak {p['peak_gb']:.2f} GB"
+            for name, p in bf["paths"].items())
+        + f"; block forward {bf['blocks']['fwd']['ms']:.4f} ms and backward "
+        f"{bf['blocks']['bwd']['ms']:.4f} ms a step in bf16; wall "
+        f"{bf['wall_s']:.1f}s")
     log(f"dmt: request p50 {p50:.3f} ms; training step "
         f"{step_ms:.3f} ms, {eps:.1f} examples/s at batch {TRAIN_BATCH}; "
         f"with DMT_BLOCK_SAVE=1 {save_train['step_ms']:.3f} ms, "

@@ -19,6 +19,19 @@ from ..parallel.embedding_shard import EmbeddingEngine
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def float32_sums(device: torch.device) -> None:
+    """On the card, bfloat16 products are summed in float32, as the
+    reference's kernels and XLA sum them: cuBLAS may otherwise reduce a
+    bfloat16 product's partial sums in bfloat16
+    (``allow_bf16_reduced_precision_reduction``, on by default in PyTorch),
+    which on an H100 put the bfloat16 step's gradients several times
+    farther from the CPU's than the CPU's are from float32.  The entry
+    points on a CUDA device call this (a process-wide setting)."""
+    if torch.device(device).type == "cuda":
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
+
+
 class BaseModel:
     name = "base"
     num_tasks = 1
@@ -30,7 +43,7 @@ class BaseModel:
         self.schema = schema or FeatureSchema.from_config(cfg)
         self.dtype = _DTYPES[cfg.param_dtype]
         self.compute_dtype = _DTYPES[cfg.compute_dtype]
-        self.engine = EmbeddingEngine()
+        self.engine = EmbeddingEngine(cfg)
 
     def _emb_init(self, gen: torch.Generator) -> Params:
         return collection_init(gen, self.cfg.embeddings, self.dtype,

@@ -190,7 +190,8 @@ def encode_decode(params: Params, tc: TransformerConfig, *,
     the user-interest state [B, d_model].  ``train`` turns dropout on;
     its randomness comes from ``gen`` (on the inputs' device)."""
     drop = train and tc.dropout_rate > 0.0 and gen is not None
-    scale = math.sqrt(tc.d_model)
+    # the reference's weak-typed Python scalar takes the inputs' type
+    scale = float(torch.tensor(math.sqrt(tc.d_model), dtype=seq_emb.dtype))
     enc = _position_encode(params, tc, seq_emb * scale, ts_emb)
     dec = tar_emb * scale
     if tc.is_decoder_add_pos_emb:

@@ -6,7 +6,10 @@ through dedup, one-hot or packed-row gathers; those exist for the TPU's
 scatter and tiling costs and change no value, so here a lookup is a clamped
 gather of a logical ``[R, D]`` table, differentiated by PyTorch's own
 autograd (a scatter-add, accumulated in float32 for bfloat16 tables and
-rounded once, as the reference's one-hot backward does).
+rounded once, as the reference's one-hot backward does).  One route does
+change values: with ``onehot_bwd_bf16`` under bfloat16 compute, a lookup
+that the reference sends through its one-hot backward (``bf16_cotangent``)
+rounds its float32 cotangent to bfloat16 before the float32 sum.
 
 During a training step the trainer sets ``overlay``: table name ->
 ``train.lazy.LazyOverlay``.  Lookups of an overlaid table then slice the
@@ -72,12 +75,43 @@ def take_quant(table: dict, ids: torch.Tensor) -> torch.Tensor:
     return rows.reshape(*ids.shape, q.shape[1])
 
 
+class _Bf16Cotangent(torch.autograd.Function):
+    """The identity, whose backward rounds the cotangent to bfloat16 and
+    back to its type."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).to(g.dtype)
+
+
+def bf16_cotangent(cfg, table: torch.Tensor) -> bool:
+    """Whether a lookup of the replicated float32 ``table`` rounds its
+    cotangent to bfloat16: where the reference routes it to
+    ``take_onehot(..., bf16_grad=True)`` (``dedup_grads``, fewer logical
+    rows than ``dedup_rows_threshold``, at most ``onehot_bwd_rows_max``
+    physical rows of its storage) with ``onehot_bwd_bf16`` under bfloat16
+    compute.  A bfloat16 table's cotangent is bfloat16 already."""
+    if cfg is None or not (cfg.onehot_bwd_bf16 and cfg.dedup_grads
+                           and cfg.compute_dtype == "bfloat16"):
+        return False
+    R, D = table.shape
+    return (table.dtype == torch.float32 and R < cfg.dedup_rows_threshold
+            and -(-R // table_group(cfg, R, D)) <= cfg.onehot_bwd_rows_max)
+
+
 class EmbeddingEngine:
     """Replicated-table engine: plain clamped gathers, int8 gathers, or
-    the lazy-Adam overlay of the current training step."""
+    the lazy-Adam overlay of the current training step.  ``cfg`` (None:
+    plain gathers only) routes the one-hot backward's bfloat16 rounding
+    (``bf16_cotangent``)."""
 
-    def __init__(self):
+    def __init__(self, cfg=None):
         self.overlay: dict = {}
+        self.cfg = cfg
 
     def _take(self, name: str, table: torch.Tensor, ids,
               feature: Optional[str]) -> torch.Tensor:
@@ -90,7 +124,10 @@ class EmbeddingEngine:
         if table.dtype == torch.bfloat16 and table.requires_grad:
             # float32 gradient accumulation, one rounding to the table type
             return take_clip(table.float(), ids).to(table.dtype)
-        return take_clip(table, ids)
+        rows = take_clip(table, ids)
+        if table.requires_grad and bf16_cotangent(self.cfg, table):
+            rows = _Bf16Cotangent.apply(rows)
+        return rows
 
     def pooled(self, name: str, table: torch.Tensor, ids, wts, lens,
                feature: Optional[str] = None,
@@ -114,8 +151,8 @@ class FullMeshEngine(EmbeddingEngine):
     rows) is looked up through the owners' exchange; every other table as
     in ``EmbeddingEngine``."""
 
-    def __init__(self, mesh, tables: dict):
-        super().__init__()
+    def __init__(self, cfg, mesh, tables: dict):
+        super().__init__(cfg)
         self.mesh = mesh
         self.tables = tables       # name -> (logical rows R, group size p)
 
@@ -194,7 +231,7 @@ class ShardedEmbeddingEngine(FullMeshEngine):
     the model group, every other table replicated."""
 
     def __init__(self, cfg, mesh, full: dict, split: dict):
-        super().__init__(mesh, full)
+        super().__init__(cfg, mesh, full)
         self.split = split
         self.exchange = cfg.shard_seq_exchange
         self.budget_div = cfg.dedup_budget_div
@@ -297,10 +334,10 @@ def make_engine(cfg, mesh) -> EmbeddingEngine:
     """The engine for ``mesh`` (None: one device): ``FullMeshEngine`` on a
     data mesh, ``ShardedEmbeddingEngine`` with a model axis."""
     if mesh is None:
-        return EmbeddingEngine()
+        return EmbeddingEngine(cfg)
     from .full_shard import fms_tables
     full = fms_tables(cfg, mesh.size)
     if mesh.model > 1:
         return ShardedEmbeddingEngine(
             cfg, mesh, full, model_split_tables(cfg, mesh.size, mesh.model))
-    return FullMeshEngine(mesh, full)
+    return FullMeshEngine(cfg, mesh, full)

@@ -39,6 +39,7 @@ from ..core.config import DMTConfig
 from ..data.pipeline import IDS, LEN, WTS
 from ..data.schema import FeatureSchema
 from ..data.vocab import VocabSet
+from ..models.base import float32_sums
 from ..models.zoo import build_model
 from ..nn.embedding import pack_factor
 from ..nn.layers import tree_map
@@ -202,6 +203,7 @@ class Scorer:
             raise RuntimeError(
                 f"Scorer: device {self.device} requested but CUDA is not "
                 "available; pass device='cpu' to score on the CPU")
+        float32_sums(self.device)
         self.cfg = cfg
         self.model = build_model(cfg)
         self.params = tree_map(lambda t: t.to(self.device), params)

@@ -46,6 +46,7 @@ from ..data.pipeline import Batch, device_batch, prefetch
 from ..metrics import offline
 from ..metrics.streaming import (task_metrics_init, task_metrics_update,
                                  task_metrics_values)
+from ..models.base import float32_sums
 from ..models.zoo import BaseModel, build_model, model_class
 from ..nn.layers import tree_map
 from .losses import model_loss, scores_from_logits
@@ -61,6 +62,7 @@ def check_device(device, who: str) -> torch.device:
         raise RuntimeError(f"{who}: device {device} requested but CUDA is "
                            "not available; pass device='cpu' to run on the "
                            "CPU")
+    float32_sums(device)
     return device
 
 

@@ -226,8 +226,10 @@ def collect(spec: LazyTableSpec, batch: dict, table: torch.Tensor,
 def make_overlay(col: LazyCollection, rows_diff: torch.Tensor,
                  table: torch.Tensor = None, shard=None) -> LazyOverlay:
     """The union grid, inside the differentiated function: ``rows_diff``
-    is the diff leaf.  With ``table`` (cfg.lazy_overflow_exact) elements
-    past the budget read their true rows (no gradient) instead of the zero
+    is the diff leaf (bfloat16 rows of a float32 table under
+    ``grid_bf16``; the grid keeps its type).  With ``table``
+    (cfg.lazy_overflow_exact) elements past the budget read their true
+    rows, rounded to the grid's type (no gradient), instead of the zero
     row; the gather runs every step, which costs one [N, D] pass and keeps
     the step free of host synchronisation.  For a sharded table (``shard``
     = (mesh, R, p), ``table`` this rank's share) the rows come through

@@ -9,7 +9,11 @@ One ``Trainer.train_step``:
    ``dedup_rows_threshold`` rows);
 2. forward with those tables' lookups sliced from the union grid, the
    model family's loss (``losses.model_loss``, plus ``l2_regularization``
-   where ``wnd_wd`` > 1e-5), and its backward;
+   where ``wnd_wd`` > 1e-5), and its backward.  With ``grid_bf16`` (or
+   ``DMT_GRID_BF16=1`` when the trainer is built) the gathered rows of a
+   float32 table are rounded to bfloat16 before they feed the grid, so
+   the grid and its cotangent are bfloat16; the update reads the float32
+   rows;
 3. the dense optimizer (``train/optim.make_optimizer``) on every other
    leaf, the tables outside the plan included;
 4. LazyAdam on the touched rows of each lazy table, in place;
@@ -87,6 +91,7 @@ from ..data import pipeline
 from ..data.pipeline import Batch
 from ..metrics.streaming import (task_metrics_init, task_metrics_update,
                                  task_metrics_values)
+from ..models.base import float32_sums
 from ..models.zoo import build_model
 from ..parallel.full_shard import collect_fms, fms_adam_update
 from .lazy import (build_lazy_plan, collect, lazy_adam_rows,
@@ -239,12 +244,13 @@ class Trainer:
             raise RuntimeError(
                 f"Trainer: device {self.device} requested but CUDA is not "
                 "available; pass device='cpu' to train on the CPU")
-        if cfg.grid_bf16 or os.environ.get("DMT_GRID_BF16", "0") == "1":
-            raise ValueError(
-                "Trainer: grid_bf16 (or DMT_GRID_BF16=1) is not ported; it "
-                "rounds the union grid of a float32 lazy table to bfloat16, "
-                "which would change the trained values")
+        float32_sums(self.device)
         self.cfg = cfg
+        # float32 lazy tables, bfloat16 union grid (JAX ``_lazy_step``,
+        # which reads the variable at each step; here once, at
+        # construction)
+        self.grid_bf16 = (cfg.grid_bf16
+                          or os.environ.get("DMT_GRID_BF16", "0") == "1")
         self.model = build_model(cfg)
         if mesh is not None:
             from ..parallel.embedding_shard import make_engine
@@ -323,7 +329,10 @@ class Trainer:
         dense = self._dense(params)
         leaves = [t.detach().requires_grad_() for t in _flatten(dense, [])]
         dense_d = _rebuild(dense, iter(leaves))
-        rows_d = {name: c.rows.detach().requires_grad_()
+        # the diff leaf; the update reads the rows as collected (c.rows)
+        rows_d = {name: (c.rows.to(torch.bfloat16)
+                         if self.grid_bf16 and c.rows.dtype == torch.float32
+                         else c.rows).detach().requires_grad_()
                   for name, c in cols.items()}
         full = dict(dense_d)
         if cols:

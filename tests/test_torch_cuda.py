@@ -1212,3 +1212,68 @@ def test_model_axis_step_on_card(cuda_device):
     mine, other = out[0]["replicated"], out[1]["replicated"]
     assert set(mine) == set(other)
     assert [k for k in mine if not torch.equal(mine[k], other[k])] == []
+
+
+def _bench_cfg(grid_bf16):
+    """``chip_smoke.bench_config`` with Sku cut to 40,000 rows (lazy Adam
+    from 10,000 rows, so Sku alone)."""
+    import dataclasses
+
+    import chip_smoke as cs
+    return dataclasses.replace(
+        cs.bench_config(grid_bf16, sku_rows=40_000),
+        dedup_rows_threshold=10_000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid_bf16", [False, True],
+                         ids=["bf16_tables", "grid_bf16"])
+def test_bf16_step_matches_cpu_on_card(grid_bf16, cuda_device):
+    """One bfloat16 step of ``bench.py``'s config (Sku cut) on the card
+    against the CPU by ``chip_smoke.bf16_card_vs_cpu_step``'s rule (which
+    raises past it): the card's step launches 3 block forwards and
+    backwards and the lazy update's three kernels, nothing else; under
+    ``grid_bf16`` the tables stay float32.  The Trainer has turned off
+    cuBLAS's bfloat16 reductions (``models/base.float32_sums``): with them
+    on, 3 of 6 such checks at batch 256 failed on an H100."""
+    import chip_smoke as cs
+
+    cs.reset_counts()
+    check = cs.bf16_card_vs_cpu_step(_bench_cfg(grid_bf16), cuda_device)
+    assert cs.read_counts() == {
+        "fused_block_fwd": 3, "fused_block_bwd": 3, "attention_fwd": 0,
+        "attention_bwd": 0, "sorted_segsum": 1, "update_rows": 1,
+        "update_rows_3d": 1}
+    assert check["grad_err_over_tol"] <= 1.0
+    assert check["leaves_checked"] > 100
+    # the Trainer on the card sums bfloat16 products in float32
+    matmul = torch.backends.cuda.matmul
+    assert not matmul.allow_bf16_reduced_precision_reduction
+
+
+@pytest.mark.cuda
+def test_onehot_bf16_lookup_on_card(cuda_device):
+    """``onehot_bwd_bf16`` on the card: a small float32 table's gradient
+    under bfloat16 compute is the float32 sum of the bfloat16-rounded
+    cotangents, as on the CPU (within float32 sum order), not the sum of
+    the unrounded ones."""
+    import dataclasses
+
+    from cikm2020_dmt_torch.parallel.embedding_shard import EmbeddingEngine
+
+    cfg = dataclasses.replace(_bench_cfg(False), onehot_bwd_bf16=True)
+    gen = torch.Generator().manual_seed(0)
+    table = torch.randn(500, 8, generator=gen)
+    ids = torch.randint(0, 500, (256, 50), generator=gen)
+    g = torch.randn(256, 50, 8, generator=gen)
+    grads = []
+    for dev in ("cpu", cuda_device):
+        t = table.to(dev, copy=True).requires_grad_()
+        EmbeddingEngine(cfg)._take("Cid2", t, ids.to(dev), "item_c2").backward(
+            g.to(dev))
+        grads.append(t.grad.cpu())
+    plain = torch.zeros_like(table).index_add_(0, ids.reshape(-1),
+                                               g.reshape(-1, 8))
+    scale = float(grads[0].abs().max())
+    assert float((grads[1] - grads[0]).abs().max()) <= 1e-6 * scale
+    assert float((plain - grads[0]).abs().max()) > 1e-4 * scale

@@ -120,3 +120,39 @@ def test_training_wrappers_raise_off_cpu_and_cuda(name):
     }
     with pytest.raises(ValueError, match="unsupported device"):
         calls[name]()
+
+
+# DMTConfig fields no module of the port reads, each with the reason it
+# changes no value of the port
+UNREAD_FIELDS = {
+    "dedup_exact_rows_max": "routes a lookup to the reference's exact-dedup "
+                            "gather, a TPU scatter cost (0, off, by default)",
+    "total_example_num": "records the training data's size; nothing reads "
+                         "it in either package",
+    "checkpoint": "the [path] checkpoint key; nothing reads it in either "
+                  "package",
+}
+
+
+def _attributes_read(paths) -> set:
+    names = set()
+    for path in paths:
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            if isinstance(node, ast.Attribute):
+                names.add(node.attr)
+    return names
+
+
+def test_every_config_field_is_read_or_listed():
+    """Each ``DMTConfig`` field is read (an attribute access) by some
+    module of the port outside the config's own parser, or is one of
+    ``UNREAD_FIELDS``; a listed field is read nowhere (a field that the
+    port starts to read leaves the list)."""
+    from dataclasses import fields
+
+    from cikm2020_dmt_torch.core.config import DMTConfig
+    read = _attributes_read(p for p in PORT.rglob("*.py")
+                            if p != PORT / "core" / "config.py")
+    names = {f.name for f in fields(DMTConfig)}
+    assert set(UNREAD_FIELDS) <= names
+    assert sorted(n for n in names - read) == sorted(UNREAD_FIELDS)

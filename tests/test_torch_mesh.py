@@ -311,3 +311,37 @@ def test_dropout_seeds_differ_by_rank():
     s0, s1 = out[0]["seeds"], out[1]["seeds"]
     assert len(s0) == len(s1) == len(cfg.attention_pairs)
     assert all(a != b for a, b in zip(s0, s1))
+
+
+@pytest.mark.parametrize("knob", [dict(grid_bf16=True)], ids=["grid_bf16"])
+def test_knob_ranks_match_one_process(two_ranks, knob):
+    """A config knob on the (2, 1) mesh against one process, one step from
+    the same JAX init and batch (no JAX step of its own; a second step
+    starts from states that differ by the rounding below, and the port's
+    float32 ReLU ties then move single elements by a few percent).
+    ``grid_bf16``: the
+    full-mesh Sku's union grid, and the replicated tables', in bfloat16;
+    each rank rounds its gradient rows to bfloat16 before the owners sum
+    them, one process rounds their sum once, so the lazy moments are held
+    to one bfloat16 step of the gradient (2**-6 of their largest |value|,
+    as ``tests/test_torch_train_bf16.py``) and the rest to
+    ``check_state``'s rules; the tables stay float32."""
+    cfg = dataclasses.replace(two_ranks["cfg"], **knob)
+    pcfg = port_cfg(cfg)
+    batches = two_ranks["batches"][:1]
+    ranks = run_port(cfg, 2, two_ranks["jax"]["states"][0], batches)
+    one = run_one_process(cfg, two_ranks["jax"]["states"][0], batches)
+    for r in ranks:
+        assert not r["jax"]
+        np.testing.assert_allclose(r["losses"], one["losses"], rtol=1e-5)
+    got = ranks[0]["states"][0]
+    assert got["params"]["emb"]["Sku"].dtype == torch.float32
+    want = jax.tree_util.tree_map(lambda t: t.numpy(), one["state"])
+    check_state(pcfg, got, want, lazy=())
+    for t, sub in want["lazy_opt"].items():
+        a = got["lazy_opt"][t]["mv"].numpy()
+        for i in (0, 1):
+            np.testing.assert_allclose(
+                a[i], sub["mv"][i], rtol=0,
+                atol=2.0 ** -6 * np.abs(sub["mv"][i]).max(),
+                err_msg=f"{t}/{i}")

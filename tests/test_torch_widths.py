@@ -1,8 +1,10 @@
 """Widths other than the model's, and the options the port refuses.
 
-- ``Trainer`` raises on ``grid_bf16`` and on ``DMT_GRID_BF16=1``: the JAX
-  ``_lazy_step`` then rounds the union grid of a float32 lazy table to
-  bfloat16, which the port does not do.
+- ``grid_bf16`` and ``DMT_GRID_BF16=1`` (the JAX ``_lazy_step`` rounds
+  the union grid of a float32 lazy table to bfloat16; the port read it as
+  unported and refused it until it ported it): one CPU step with either
+  gives the same bits, the table stays float32, and the step differs from
+  one without them.  ``tests/test_torch_grid_bf16*.py`` hold it to JAX.
 - The port's plain block and attention versions (the functions the CUDA
   kernels are held to on the card) against the JAX Pallas kernels in
   interpret mode at (D, F, heads, T) = (36, 100, 3, 7) and (64, 256, 2,
@@ -43,17 +45,52 @@ def _port_config(**kw):
     return port_cfg(g._demo_config(**{**SMALL, **kw}))
 
 
+GRID_KW = dict(table_bf16_threshold=0, dedup_rows_threshold=1000,
+               batch_size=32)
+
+
+def _grid_step(cfg):
+    """One CPU step from a seeded init: (trainer, state)."""
+    from cikm2020_dmt_torch.metrics.streaming import task_metrics_init
+    tr = Trainer(cfg, device="cpu")
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    batch = {k: torch.from_numpy(v) for k, v in g.synthetic_batch(
+        g._demo_config(**{**SMALL, **GRID_KW}), 32, seed=1).items()}
+    state, _, _ = tr.train_step(state, task_metrics_init(), batch,
+                                torch.Generator().manual_seed(0))
+    return tr, state
+
+
+def _flat(state):
+    from cikm2020_dmt_torch.nn.layers import tree_map
+    out = []
+    tree_map(out.append, {k: v for k, v in state.items()
+                          if k != "model_state"})
+    return out
+
+
 @pytest.mark.parametrize("how", ["config", "environment"])
 def test_trainer_refuses_grid_bf16(how, monkeypatch):
-    """grid_bf16 changes the trained values in the JAX package and is not
-    ported: the Trainer raises rather than train without it."""
-    if how == "config":
-        cfg = _port_config(grid_bf16=True)
-    else:
-        cfg = _port_config()
+    """(The name is the refusal it held until the knob was ported.)  The
+    config knob and ``DMT_GRID_BF16=1``, read once when the Trainer is
+    built, give the same bits after one step; the lazy Sku table stays
+    float32, and the step differs from one without the knob."""
+    monkeypatch.setenv("DMT_GRID_BF16", "0")
+    _, off = _grid_step(_port_config(**GRID_KW))
+    tr, state = _grid_step(_port_config(grid_bf16=True, **GRID_KW))
+    if how == "environment":
+        ref = state
         monkeypatch.setenv("DMT_GRID_BF16", "1")
-    with pytest.raises(ValueError, match="grid_bf16"):
-        Trainer(cfg, device="cpu")
+        tr, state = _grid_step(_port_config(**GRID_KW))
+        monkeypatch.setenv("DMT_GRID_BF16", "0")
+        assert all(torch.equal(a, b)
+                   for a, b in zip(_flat(state), _flat(ref)))
+    assert tr.grid_bf16 and [t.name for t in tr.lazy_plan] == [
+        "Sku", "Cid3", "Brand", "Shopid"]
+    assert state["params"]["emb"]["Sku"].dtype == torch.float32
+    assert state["lazy_opt"]["Sku"]["mv"].dtype == torch.float32
+    assert not torch.equal(state["params"]["emb"]["Sku"],
+                           off["params"]["emb"]["Sku"])
 
 
 def test_trainer_takes_grid_bf16_off(monkeypatch):

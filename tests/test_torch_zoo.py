@@ -94,12 +94,13 @@ def assert_trees_close(got, want, what, rel=TOL):
 
 
 @functools.lru_cache(maxsize=None)
-def case(model_type, is_bn):
+def case(model_type, is_bn, knobs=()):
     """One model's JAX and port results on the same init and batches.
     Without batch norm the init is JAX's (converted to the port's); with
     it the port's, handed to JAX as numpy (the same tree: a JAX init of a
-    transformer model costs seconds of small compiles on the CPU)."""
-    cfg = config(model_type, is_bn)
+    transformer model costs seconds of small compiles on the CPU).
+    ``knobs``: (field, value) pairs set on the config."""
+    cfg = config(model_type, is_bn, **dict(knobs))
     pcfg = port_cfg(cfg)
     jm, pm = j_build(cfg), build_model(pcfg)
     if is_bn:
@@ -160,6 +161,24 @@ def test_train_loss_and_grads_match_jax(model_type):
     assert case(model_type, False)["pstate"] == {}
 
 
+# config values no other case sets, each on the lattice's two-task models
+KNOBS = {"uncertainty": (("loss_weight_method", "uncertainty"),)}
+
+
+@pytest.mark.parametrize("model_type", ["multi_task",
+                                        "mmoe_transformer_unbias"])
+@pytest.mark.parametrize("knob", sorted(KNOBS))
+def test_knob_loss_and_grads_match_jax(knob, model_type):
+    """The loss and every gradient leaf within 1e-5; with ``uncertainty``
+    the two Kendall loss weights are leaves of both trees."""
+    check_loss_and_grads(model_type, False, KNOBS[knob])
+    c = case(model_type, False, KNOBS[knob])
+    if knob == "uncertainty":
+        assert sorted(c["pgrads"]["uncertainty"]) == [
+            "click_weight", "order_weight"]
+        assert float(c["pgrads"]["uncertainty"]["click_weight"].abs()) > 0
+
+
 def check_eval_forward(model_type, is_bn):
     c = case(model_type, is_bn)
     # the same logit structure (tuples of [B, 1]), values within 1e-5
@@ -170,8 +189,8 @@ def check_eval_forward(model_type, is_bn):
     assert_trees_close(c["peval"], c["jeval"], "eval logits")
 
 
-def check_loss_and_grads(model_type, is_bn):
-    c = case(model_type, is_bn)
+def check_loss_and_grads(model_type, is_bn, knobs=()):
+    c = case(model_type, is_bn, knobs)
     np.testing.assert_allclose(c["pl"], c["jl"], rtol=TOL)
     assert_trees_close(c["pgrads"], c["jgrads"], "grad")
 

@@ -50,6 +50,14 @@ CASES = {
     "mmoe_bn": dict(model_type="mmoe", is_bn=True),
     "multi_task_propensity": dict(model_type="multi_task",
                                   propensity_em=True),
+    # test_torch_zoo_train_knobs.py: elements past the budget read zeros;
+    # the weights from the position propensity model
+    "lazy_overflow_inexact": dict(model_type="embed_mlp_unbias",
+                                  lazy_overflow_exact=False,
+                                  dedup_budget_div=64),
+    "multi_task_propensity_position": dict(
+        model_type="multi_task", propensity_em=True,
+        propensity_em_type="position"),
 }
 
 
@@ -69,10 +77,33 @@ def batches(cfg, n):
     for s in range(n):
         b = g.synthetic_batch(cfg, B, seed=s)
         rng = np.random.default_rng(100 + s)
-        b["propensity_weight_mul"] = rng.uniform(0.3, 4.0, B).astype(
-            np.float32)
+        if cfg.propensity_em_type == "position":
+            b.update(position_weights(b, rng))
+        else:
+            b["propensity_weight_mul"] = rng.uniform(0.3, 4.0, B).astype(
+                np.float32)
         out.append(b)
     return out
+
+
+def position_weights(b, rng):
+    """The propensity fields from a position propensity model with a
+    random table, as the data pipeline makes them; the port's model and
+    the JAX package's give the same arrays."""
+    from cikm2020_dmt_tpu.data.propensity import \
+        PropensityModel as JPropensity
+    from cikm2020_dmt_torch.data.propensity import (MAX_POSITION,
+                                                    PropensityModel)
+    table = rng.uniform(0.05, 1.0, MAX_POSITION + 1).astype(np.float32)
+    args = (b["em_position"], b["em_page"], b["label"])
+    got = PropensityModel("position", table).weights(*args)
+    want = JPropensity("position", table).weights(*args)
+    for a, w in zip(got, want):
+        np.testing.assert_array_equal(a, w)
+    assert np.ptp(got[3]) > 0
+    return dict(zip(("propensity", "propensity_weight",
+                     "propensity_weight_positive", "propensity_weight_mul"),
+                    got))
 
 
 def run_pair(cfg, n_steps=2):
