@@ -34,6 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core import tracing
 from ..core.checkpoint import CheckpointManager, save_file
 from ..core.config import DMTConfig
 from ..data.pipeline import IDS, LEN, WTS
@@ -219,11 +220,15 @@ class Scorer:
 
     def _tensor(self, v) -> torch.Tensor:
         """A request array on the scorer's device; a host array goes to
-        the card from pinned memory without blocking the host."""
+        the card from pinned memory without blocking the host (counted in
+        ``scorer.h2d_bytes``)."""
         if isinstance(v, torch.Tensor):
+            if self.device.type == "cuda" and v.device.type == "cpu":
+                tracing.count("scorer.h2d_bytes", v.nbytes)
             return v.to(self.device)
         t = torch.as_tensor(np.asarray(v))
         if self.device.type == "cuda":
+            tracing.count("scorer.h2d_bytes", t.nbytes)
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
@@ -241,10 +246,15 @@ class Scorer:
         """One request -> ``Scores``, ``click_Scores``, ``order_Scores``,
         each a ``[B]`` tensor on the scorer's device, returned without
         waiting for the card: the caller overlaps the next request's host
-        work with this one's kernels and reads the values when needed."""
-        b = {k: self._tensor(v) for k, v in batch.items()}
-        return self._score(broadcast_uside(b, self.uside,
-                                           b["valid"].shape[0]))
+        work with this one's kernels and reads the values when needed.
+        Under ``core.tracing.recording()`` the inputs' way to the device
+        is a ``scorer.merge`` span and the forward a ``scorer.forward``
+        one."""
+        with tracing.span("scorer.merge"):
+            b = {k: self._tensor(v) for k, v in batch.items()}
+            b = broadcast_uside(b, self.uside, b["valid"].shape[0])
+        with tracing.span("scorer.forward"):
+            return self._score(b)
 
     def score_group_async(self, batches: list[dict]) -> dict:
         """Several requests with the same candidate count in one pass,
@@ -256,7 +266,7 @@ class Scorer:
         requests and each request's u-side row is repeated over its
         candidates.  Requests already on the device are concatenated
         there; host requests are merged on the host, so each key crosses
-        to the card once."""
+        to the card once.  Spans as in ``score_async``."""
         n_req = len(batches)
         if n_req == 0:
             raise ValueError("score_group: no requests")
@@ -267,19 +277,21 @@ class Scorer:
             raise ValueError("score_group needs equal candidate counts per "
                              f"request, got {sorted(sizes)}")
         per = sizes.pop()
-        b = {}
-        for k in batches[0]:
-            vals = [r[k] for r in batches]
-            if all(isinstance(v, torch.Tensor) for v in vals):
-                b[k] = torch.cat([v.to(self.device) for v in vals])
-            else:
-                b[k] = self._tensor(np.concatenate(
-                    [np.asarray(v) for v in vals]))
-        for k in self.uside:
-            v = b.get(k)
-            if v is not None and v.shape[0] == n_req and per > 1:
-                b[k] = v.repeat_interleave(per, dim=0)
-        return self._score(b)
+        with tracing.span("scorer.merge"):
+            b = {}
+            for k in batches[0]:
+                vals = [r[k] for r in batches]
+                if all(isinstance(v, torch.Tensor) for v in vals):
+                    b[k] = torch.cat([self._tensor(v) for v in vals])
+                else:
+                    b[k] = self._tensor(np.concatenate(
+                        [np.asarray(v) for v in vals]))
+            for k in self.uside:
+                v = b.get(k)
+                if v is not None and v.shape[0] == n_req and per > 1:
+                    b[k] = v.repeat_interleave(per, dim=0)
+        with tracing.span("scorer.forward"):
+            return self._score(b)
 
     def __call__(self, batch: dict) -> dict:
         """One request -> numpy ``Scores``, ``click_Scores``,

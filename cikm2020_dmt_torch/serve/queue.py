@@ -32,6 +32,8 @@ from concurrent.futures import Future
 
 import numpy as np
 
+from ..core import tracing
+
 
 def _signature(batch: dict) -> tuple:
     """(key, shape, dtype) of every array of a request."""
@@ -56,7 +58,17 @@ class ScorerQueue:
     group is padded to the next size by repeating its last request (the
     padded rows are scored and dropped), so only those few shapes ever
     reach the card.  Results are the scorer's device tensors, sliced per
-    request; the dispatcher never waits for the card."""
+    request; the dispatcher never waits for the card.
+
+    Under ``core.tracing.recording()`` each request is a ``queue.wait``
+    span from ``submit`` until the dispatcher drains it, and the
+    dispatcher's time is ``queue.idle`` (waiting for a request) and
+    ``queue.group`` spans (one drained group: ``queue.check``, the drain,
+    the requests' checks and the padding; the scorer call;
+    ``queue.resolve``, the futures; ``attrs`` ``ids``, the ``seq`` of its
+    requests' ``queue.wait`` spans, ``real`` and ``size``).  The counters
+    ``queue.requests``, ``queue.groups`` and ``queue.padded`` count the
+    requests, the scorer calls and the padding rows' requests."""
 
     def __init__(self, scorer, max_group: int = 8,
                  groups: tuple[int, ...] = (1, 2, 4, 8)):
@@ -89,7 +101,7 @@ class ScorerQueue:
         with self._lock:
             if self._closed:
                 raise RuntimeError("ScorerQueue is closed")
-            self._q.put((batch, fut))
+            self._q.put((batch, fut, tracing.begin("queue.wait")))
         return fut
 
     def close(self) -> None:
@@ -110,6 +122,7 @@ class ScorerQueue:
         return self.max_group
 
     def _alone(self, batch: dict, fut: Future) -> None:
+        tracing.count("queue.groups")
         try:
             fut.set_result(self.scorer.score_async(batch))
         except Exception as e:  # noqa: BLE001 - the request's own error
@@ -117,9 +130,17 @@ class ScorerQueue:
 
     def _run(self) -> None:
         while True:
-            item = self._q.get()
+            with tracing.span("queue.idle"):
+                item = self._q.get()
             if item is None:
                 return
+            with tracing.span("queue.group") as span:
+                self._group(item, span)
+
+    def _group(self, item: tuple, span) -> None:
+        """Drains up to ``max_group`` requests after ``item`` and scores
+        them."""
+        with tracing.span("queue.check"):
             group = [item]
             while len(group) < self.max_group:
                 try:
@@ -130,25 +151,35 @@ class ScorerQueue:
                     self._q.put(None)  # re-queue the shutdown marker
                     break
                 group.append(nxt)
+            if span:
+                for _, _, wait in group:
+                    wait.end()
+                ids = [w.seq for _, _, w in group if w]
             sig = _signature(group[0][0])
-            odd = [(b, f) for b, f in group if _signature(b) != sig]
-            group = [(b, f) for b, f in group if _signature(b) == sig]
+            odd = [(b, f) for b, f, _ in group if _signature(b) != sig]
+            group = [(b, f) for b, f, _ in group if _signature(b) == sig]
             batches = [b for b, _ in group]
             g = self._next_group_size(len(batches))
             padded = batches + [batches[-1]] * (g - len(batches))
-            try:
-                out = self.scorer.score_group_async(padded)
-                # slices of the device tensors only: waiting for the card
-                # here would stop the launches from overlapping
-                per = out["Scores"].shape[0] // g
+        if span:
+            span.attrs = {"ids": ids, "real": len(batches), "size": g}
+            tracing.count("queue.requests", len(group) + len(odd))
+            tracing.count("queue.groups")
+            tracing.count("queue.padded", g - len(batches))
+        try:
+            out = self.scorer.score_group_async(padded)
+            # slices of the device tensors only: waiting for the card
+            # here would stop the launches from overlapping
+            per = out["Scores"].shape[0] // g
+            with tracing.span("queue.resolve"):
                 for i, (_, fut) in enumerate(group):
                     fut.set_result({k: v[i * per:(i + 1) * per]
                                     for k, v in out.items()})
-            except Exception:  # noqa: BLE001
-                # an error raised on the host fails no neighbour: each
-                # request of the group is scored alone
-                for b, fut in group:
-                    if not fut.done():
-                        self._alone(b, fut)
-            for b, fut in odd:
-                self._alone(b, fut)
+        except Exception:  # noqa: BLE001
+            # an error raised on the host fails no neighbour: each
+            # request of the group is scored alone
+            for b, fut in group:
+                if not fut.done():
+                    self._alone(b, fut)
+        for b, fut in odd:
+            self._alone(b, fut)

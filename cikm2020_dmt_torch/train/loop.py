@@ -84,6 +84,7 @@ import torch
 
 from ..convert import gather_state, shard_params, shard_state
 from ..core import mesh as meshlib
+from ..core import tracing
 from ..core.checkpoint import CheckpointManager
 from ..core.config import DMTConfig
 from ..core.logging import SummaryWriter, Throughput, log_line, log_to_file
@@ -246,6 +247,7 @@ class Trainer:
                 "available; pass device='cpu' to train on the CPU")
         float32_sums(self.device)
         self.cfg = cfg
+        self._calls = 0
         # float32 lazy tables, bfloat16 union grid (JAX ``_lazy_step``,
         # which reads the variable at each step; here once, at
         # construction)
@@ -312,20 +314,46 @@ class Trainer:
         """One step; returns (state, metrics, loss).  The lazy tables and
         their moments are updated in place; the other leaves are new
         tensors.  ``gen`` (on the trainer's device) drives dropout.  A
-        packed batch (``device_batch``) is unpacked first."""
-        cfg = self.cfg
+        packed batch (``device_batch``) is unpacked first.  Under
+        ``core.tracing.recording()`` the call is a ``train.step`` span (id:
+        the trainer's count of calls) whose four phases are
+        ``train.collect``, ``train.forward``, ``train.backward`` and
+        ``train.update``."""
+        self._calls += 1
+        with tracing.span("train.step", self._calls):
+            with tracing.span("train.collect"):
+                batch, cols = self._collect(state["params"], batch)
+            with tracing.span("train.forward"):
+                dense, leaves, rows_d, out, model_state, loss = \
+                    self._forward(state, batch, cols, gen)
+            with tracing.span("train.backward"):
+                g_dense, g_rows = self._backward(dense, leaves, rows_d, loss)
+            with tracing.span("train.update"), torch.no_grad():
+                return self._update(state, metrics, batch, cols, dense,
+                                    g_dense, g_rows, out, model_state, loss)
+
+    def _collect(self, params: dict, batch: dict) -> tuple[dict, dict]:
+        """The batch (unpacked) and each lazy table's id union."""
         if any(k.startswith("__packed_") for k in batch):
             batch = self.unpack_device_batch(batch, self._pack_layout)
-        params = state["params"]
-        mesh = self.mesh
         cols = {}
         for t in self.lazy_plan:
             table = params["emb"][t.name]
             cols[t.name] = (
-                collect_fms(t, batch, table, mesh, cfg.dedup_budget_div,
+                collect_fms(t, batch, table, self.mesh,
+                            self.cfg.dedup_budget_div,
                             self.full_mesh[t.name][0]) if t.full_mesh
-                else collect(t, batch, table, cfg.dedup_budget_div,
-                             mesh=mesh))
+                else collect(t, batch, table, self.cfg.dedup_budget_div,
+                             mesh=self.mesh))
+        return batch, cols
+
+    def _forward(self, state: dict, batch: dict, cols: dict,
+                 gen: torch.Generator):
+        """The diff leaves, the model's forward and the loss: (dense
+        params, dense leaves, union-row leaves, logits, model state,
+        loss)."""
+        cfg, mesh = self.cfg, self.mesh
+        params = state["params"]
         dense = self._dense(params)
         leaves = [t.detach().requires_grad_() for t in _flatten(dense, [])]
         dense_d = _rebuild(dense, iter(leaves))
@@ -361,6 +389,13 @@ class Trainer:
                     loss = loss + l2_regularization(cfg, full, batch, mesh)
         finally:
             engine.overlay = {}
+        return dense, leaves, rows_d, out, model_state, loss
+
+    def _backward(self, dense: dict, leaves: list, rows_d: dict,
+                  loss: torch.Tensor) -> tuple[dict, dict]:
+        """The gradients of the dense params (a tree like ``dense``) and of
+        the union rows (by table), summed over the mesh's ranks."""
+        mesh = self.mesh
         wrt = leaves + list(rows_d.values())
         # the global loss is the mean of the data ranks' local means
         objective = loss if mesh is None else loss * (1.0 / mesh.data)
@@ -371,54 +406,58 @@ class Trainer:
             if self._dense_over is None:
                 self._dense_over = [
                     "data" if p == "model_split" else "world"
-                    for p in _flatten(meshlib.param_placement(cfg, dense,
-                                                              mesh), [])]
+                    for p in _flatten(meshlib.param_placement(
+                        self.cfg, dense, mesh), [])]
             grads = self._sum_over_ranks(
                 grads, self._dense_over
                 + [None if name in self.full_mesh else "world"
                    for name in rows_d])
-        g_dense = _rebuild(dense, iter(grads[:len(leaves)]))
-        g_rows = dict(zip(rows_d, grads[len(leaves):]))
+        return (_rebuild(dense, iter(grads[:len(leaves)])),
+                dict(zip(rows_d, grads[len(leaves):])))
 
-        with torch.no_grad():
-            new_dense, opt = self.optimizer.update(dense, g_dense,
-                                                   state["opt"])
-            count = state["step"] + 1
-            new_params = dict(new_dense)
-            if cols:
-                new_params["emb"] = dict(new_dense["emb"])
-            lazy_opt = {}
-            overflow = state["lazy_overflow"]
-            for name, c in cols.items():
-                table, mv = params["emb"][name], state["lazy_opt"][name]["mv"]
-                if name in self.full_mesh:
-                    table, mv = fms_adam_update(
-                        mesh, table, mv, c, g_rows[name], count,
-                        self.schedule, self.full_mesh[name][1],
-                        cfg.fms_grad_bf16)
-                    # each rank's own union; model peers share theirs
-                    counts = mesh.model_index == 0
-                elif name in self.sharded:
-                    table, mv = lazy_adam_rows_sharded(
-                        mesh, table, mv, c.uids, c.rows, g_rows[name], count,
-                        self.schedule, *self.sharded[name])
-                    counts = self.chief    # the global union: rank 0
-                else:
-                    table, mv = lazy_adam_rows(table, mv, c.uids, c.rows,
-                                               g_rows[name], count,
-                                               self.schedule)
-                    counts = self.chief
-                if counts:
-                    overflow = overflow + c.overflow
-                new_params["emb"][name] = table
-                lazy_opt[name] = {"mv": mv}
-            new_state = {"params": new_params, "model_state": model_state,
-                         "opt": opt, "step": count, "lazy_opt": lazy_opt,
-                         "lazy_overflow": overflow}
-            p_ctr, p_cvr = scores_from_logits(cfg, _detach(out))
-            metrics = task_metrics_update(
-                metrics, mask=batch["mask"], p_ctr=p_ctr, p_cvr=p_cvr,
-                loss=loss.detach(), weights=batch["valid"])
+    def _update(self, state, metrics, batch, cols, dense, g_dense, g_rows,
+                out, model_state, loss):
+        """The dense optimizer, LazyAdam on each lazy table's rows and the
+        streaming metrics: (state, metrics, loss)."""
+        mesh = self.mesh
+        params = state["params"]
+        new_dense, opt = self.optimizer.update(dense, g_dense, state["opt"])
+        count = state["step"] + 1
+        new_params = dict(new_dense)
+        if cols:
+            new_params["emb"] = dict(new_dense["emb"])
+        lazy_opt = {}
+        overflow = state["lazy_overflow"]
+        for name, c in cols.items():
+            table, mv = params["emb"][name], state["lazy_opt"][name]["mv"]
+            if name in self.full_mesh:
+                table, mv = fms_adam_update(
+                    mesh, table, mv, c, g_rows[name], count,
+                    self.schedule, self.full_mesh[name][1],
+                    self.cfg.fms_grad_bf16)
+                # each rank's own union; model peers share theirs
+                counts = mesh.model_index == 0
+            elif name in self.sharded:
+                table, mv = lazy_adam_rows_sharded(
+                    mesh, table, mv, c.uids, c.rows, g_rows[name], count,
+                    self.schedule, *self.sharded[name])
+                counts = self.chief    # the global union: rank 0
+            else:
+                table, mv = lazy_adam_rows(table, mv, c.uids, c.rows,
+                                           g_rows[name], count,
+                                           self.schedule)
+                counts = self.chief
+            if counts:
+                overflow = overflow + c.overflow
+            new_params["emb"][name] = table
+            lazy_opt[name] = {"mv": mv}
+        new_state = {"params": new_params, "model_state": model_state,
+                     "opt": opt, "step": count, "lazy_opt": lazy_opt,
+                     "lazy_overflow": overflow}
+        p_ctr, p_cvr = scores_from_logits(self.cfg, _detach(out))
+        metrics = task_metrics_update(
+            metrics, mask=batch["mask"], p_ctr=p_ctr, p_cvr=p_cvr,
+            loss=loss.detach(), weights=batch["valid"])
         return new_state, metrics, loss.detach()
 
     def _sum_over_ranks(self, grads: list, over: list) -> list:
@@ -605,7 +644,8 @@ class Trainer:
         steps and at the end; saves at the step reached on Ctrl-C or
         SIGTERM, then re-raises.  Traces steps ``profile_steps`` (counted
         from the start) into ``profile_dir`` or ``$DMT_PROFILE_DIR`` as a
-        Chrome trace.  Afterwards ``last_step`` and ``state`` hold the step
+        Chrome trace, with the ``train.*`` spans of ``core.tracing`` among
+        its host ranges.  Afterwards ``last_step`` and ``state`` hold the step
         reached and the train state."""
         cfg = self.cfg
         mesh = self.mesh
@@ -764,11 +804,17 @@ class Trainer:
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=acts)
         prof.start()
+        # the steps' spans show in the trace as record_function ranges
+        self._profile_recording = tracing.recording()
+        self._profile_recording.__enter__()
         return prof
 
     def _stop_profile(self, prof, profile_dir: str, step: int) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        self._profile_recording.__exit__(None, None, None)
+        if not tracing.enabled():
+            tracing.snapshot()   # the spans are in the trace; not kept
         prof.stop()
         os.makedirs(profile_dir, exist_ok=True)
         rank = f"-rank{self.mesh.rank}" if self.mesh is not None else ""
