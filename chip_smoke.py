@@ -20,7 +20,13 @@ which run the fused block kernels):
   one step at batch 256 (dropout off) against the same step on the CPU,
   exactly 3 block-forward, 3 block-backward, 1 segment-sum, 1 update_rows
   and 1 update_rows_3d launches per step, a finite loss that falls over 20
-  steps on one batch, and times the steps (examples/s).
+  steps on one batch, and times the steps (examples/s);
+- the dense Adam (``adam_phase``): the multi-tensor kernel, 3 launches a
+  training step (counted with the others above), on the flagship's dense
+  leaves with one real step's gradients, the same bits as the plain step
+  leaf by leaf (``adam_exact``; the 2+2 blocks' tree too, after their
+  training phase), timed beside its bound and the plain path's time and
+  kernels.
 
 ``conf/dmt_2block.conf`` (the same model with two encoder and two decoder
 blocks per sequence and no transformer dropout, which run the per-op path
@@ -149,9 +155,9 @@ backward and forward against SDPA and their time limits; the block
 backward's time limits) are printed and recorded under ``targets``, not
 enforced.  Before the last line it prints
 the card's name and power limit (``nvidia-smi``) and one JSON line
-``{"kernels": [...]}`` (seven kernels; the two block kernels carry a
-``save`` record of the save mode); the last line is ``{"ok": true,
-"device": {...}}``.  Without a CUDA card it exits with code 2 and prints
+``{"kernels": [...]}`` (the seven ported kernels and the dense Adam;
+the two block kernels carry a ``save`` record of the save mode); the
+last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with code 2 and prints
 no result.
 """
 
@@ -213,7 +219,7 @@ TRAIN_BATCH = 2048          # conf/dmt.conf batch_size
 CHECK_BATCH = 256           # the card-vs-CPU step
 DROPOUT = 0.1               # conf/dmt.conf transformer_dropout_rate
 KERNELS = ("fused_block_fwd", "fused_block_bwd", "sorted_segsum",
-           "update_rows", "attention_fwd", "attention_bwd")
+           "update_rows", "attention_fwd", "attention_bwd", "adam_dense")
 
 
 def log(msg: str) -> None:
@@ -510,14 +516,15 @@ def serve_phase(cfg, dev) -> tuple[dict, dict]:
 
 
 def _counted():
-    from cikm2020_dmt_torch.ops import attention, block, scatter_rows
+    from cikm2020_dmt_torch.ops import adam, attention, block, scatter_rows
     return {"fused_block_fwd": block.fused_encode_decode,
             "fused_block_bwd": block.fused_block_bwd,
             "attention_fwd": attention.fused_attention,
             "attention_bwd": attention.fused_attention_bwd,
             "sorted_segsum": scatter_rows.sorted_segment_sum_rows,
             "update_rows": scatter_rows.update_rows,
-            "update_rows_3d": scatter_rows.update_rows_3d}
+            "update_rows_3d": scatter_rows.update_rows_3d,
+            "adam_dense": adam.adam_dense}
 
 
 def reset_counts() -> None:
@@ -811,12 +818,14 @@ def batch_ids(cfg, batch, table):
 # launches per training step, by config: the flagship's 1+1 stacks run the
 # fused block; the 2+2 stacks run the per-op path, whose attention core is
 # the attention kernel at dropout 0: 3 sequences x (2 encoder + 2 decoder
-# blocks)
+# blocks); the dense Adam one launch per ops/adam.py MAX_LEAVES (63) dense
+# leaves: 138 leaves in 3, 222 in 4
 LAZY_PER_STEP = {"sorted_segsum": 1, "update_rows": 1, "update_rows_3d": 1}
 EXPECTED_PER_STEP = {
-    "dmt": {"fused_block_fwd": 3, "fused_block_bwd": 3, **LAZY_PER_STEP},
+    "dmt": {"fused_block_fwd": 3, "fused_block_bwd": 3, **LAZY_PER_STEP,
+            "adam_dense": 3},
     "dmt_2block": {"attention_fwd": 12, "attention_bwd": 12,
-                   **LAZY_PER_STEP},
+                   **LAZY_PER_STEP, "adam_dense": 4},
 }
 
 
@@ -2520,6 +2529,114 @@ def update_phase(state, col, counts, dev):
     return entries
 
 
+def _kernel_launches(fn) -> int:
+    """Kernels the card ran for one call of ``fn`` (``torch.profiler``'s
+    device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def adam_exact(tr, state, batch, gen, what: str):
+    """The dense Adam kernel (``ops/adam.py``) on ``tr``'s dense tree with
+    one real step's gradients (the attention projections' cut from their
+    fused products): p', m' and v' the same bits as the plain step leaf by
+    leaf.  Returns (leaves, (lr, bc1, bc2), strided gradients)."""
+    from cikm2020_dmt_torch.ops import adam
+    from cikm2020_dmt_torch.train.optim import adam_scalars, zip_leaves
+
+    b, cols = tr._collect(state["params"], batch)
+    dense, diff, rows_d, _, _, loss = tr._forward(state, b, cols, gen)
+    g_dense, _ = tr._backward(dense, diff, rows_d, loss)
+    opt = state["opt"]
+    leaves = zip_leaves(dense, g_dense, opt["m"], opt["v"])
+    scalars = adam_scalars(opt["count"], tr.schedule)[1:]
+    strided = sum(1 for _, g, _, _ in leaves if not g.is_contiguous())
+    got = adam.adam_dense(leaves, *scalars)
+    want = adam.adam_dense_ref(leaves, *scalars)
+    torch.cuda.synchronize()
+    for k, (g3, w3) in enumerate(zip(got, want)):
+        for name, x, y in zip("pmv", g3, w3):
+            if not torch.equal(x, y):
+                raise AssertionError(f"adam_dense ({what}): leaf {k} {name} "
+                                     f"{tuple(x.shape)} {x.dtype} differs "
+                                     "from the plain step")
+    log(f"adam_dense ({what}): {len(leaves)} dense leaves ({strided} "
+        "gradients cut from a wider product), the same bits as the plain "
+        "step")
+    return leaves, scalars, strided
+
+
+def adam_phase(tr, state, batch, gen, counts, dev) -> dict:
+    """The dense Adam kernel on the flagship's dense tree (``adam_exact``),
+    timed beside its bound (bytes): the kernel alone (the gradients made
+    contiguous before), the whole call (the strided gradients' copies
+    too), and the plain path's time, kernels a call and host time;
+    ``counts`` are the training phase's launches."""
+    from cikm2020_dmt_torch.ops import adam
+
+    leaves, scalars, strided = adam_exact(tr, state, batch, gen, "dmt")
+    contiguous = [(p, g.contiguous(), m, v) for p, g, m, v in leaves]
+
+    def fused():
+        return adam.adam_dense(leaves, *scalars)
+
+    def plain():
+        return adam.adam_dense_ref(leaves, *scalars)
+
+    # ten calls, whose launches fit the card's queue, so the events time
+    # the device's work back to back (fifty calls of the kernel alone read
+    # 0.116-2.29 ms on one card, the host's pace leaking in); the median
+    # of three such means.  The plain path's 2,078 launches a call never
+    # fit, so its time is the host's pace
+    def device_ms(fn):
+        return statistics.median(cuda_ms(fn, 10) for _ in range(3))
+
+    ms = device_ms(lambda: adam.adam_dense(contiguous, *scalars))
+    call_ms = device_ms(fused)
+    plain_ms = cuda_ms(plain, 10)
+    host = {}
+    for name, fn in (("kernel", fused), ("plain", plain)):
+        runs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        host[name] = statistics.median(runs)
+    kernels = {"kernel": _kernel_launches(fused),
+               "plain": _kernel_launches(plain)}
+    nbytes = adam.adam_bytes(leaves)
+    bd = bound(0, nbytes)
+    by_dtype = {str(dt).split(".")[-1]: sum(
+        p.numel() for p, _, _, _ in leaves if p.dtype == dt)
+        for dt in adam.TYPES}
+    log(f"adam_dense on the flagship's {len(leaves)} dense leaves "
+        f"({json.dumps(by_dtype)} elements): kernel {ms:.4f} ms; the "
+        f"call {call_ms:.4f} ms in {kernels['kernel']} kernels ({strided} "
+        f"copies of strided gradients); plain {plain_ms:.4f} ms in "
+        f"{kernels['plain']} kernels (device time, at the host's pace); "
+        "host ms a call, "
+        f"synchronised before: kernel {host['kernel']:.3f}, plain "
+        f"{host['plain']:.3f}; bound {bd[0]:.4f} ms ({bd[1]}, "
+        f"{nbytes / 1e6:.1f} MB)")
+    return _entry(
+        "adam_dense", "cikm2020_dmt_torch/csrc/adam_dense.cu", None,
+        counts["adam_dense"], 0.0, ms, plain_ms, bd, None,
+        replaces_note="no TPU kernel: the JAX package leaves the dense "
+                      "optimizer to XLA",
+        shape={"leaves": len(leaves), "elements": by_dtype,
+               "strided_grads": strided, "bytes": nbytes},
+        call_ms=call_ms, kernels_a_call=kernels, host_ms=host,
+        bit_equal={"dmt": len(leaves)},
+        launches_by_path={"train": counts["adam_dense"]})
+
+
 def eval_phase(cfg, params, dev) -> dict:
     """The eval path on ``cfg``: ``run_eval`` on 4 synthetic batches of
     the config's validation batch size, counted (12 attention-forward
@@ -2890,20 +3007,24 @@ ZOO_PATHS = (
 # launches per training step: the fused block forward and backward once
 # per sequence group, the lazy update's three where a table has at least
 # dedup_rows_threshold (1,000,000) rows (Sku in every configuration with
-# tables); mlp has no table and runs no kernel; the baselines run no block
+# tables), the dense Adam one a 63 dense leaves (every path trains with
+# Adam: mmoe_transformer_demo has 130 leaves, multi_task_transformer 108,
+# dien 66, the others 8-43); mlp has no table and the baselines run no
+# block
 EXPECTED_PER_STEP.update({
-    "mlp_demo": {},
-    "embed_mlp_demo": {**LAZY_PER_STEP},
+    "mlp_demo": {"adam_dense": 1},
+    "embed_mlp_demo": {**LAZY_PER_STEP, "adam_dense": 1},
     "transformer_demo": {"fused_block_fwd": 1, "fused_block_bwd": 1,
-                         **LAZY_PER_STEP},
+                         **LAZY_PER_STEP, "adam_dense": 1},
     "mmoe_transformer_demo": {"fused_block_fwd": 3, "fused_block_bwd": 3,
-                              **LAZY_PER_STEP},
-    "multi_task": {**LAZY_PER_STEP},
-    "mmoe": {**LAZY_PER_STEP},
+                              **LAZY_PER_STEP, "adam_dense": 3},
+    "multi_task": {**LAZY_PER_STEP, "adam_dense": 1},
+    "mmoe": {**LAZY_PER_STEP, "adam_dense": 1},
     "multi_task_transformer": {"fused_block_fwd": 3, "fused_block_bwd": 3,
-                               **LAZY_PER_STEP},
-    "embed_mlp_unbias": {**LAZY_PER_STEP},
-    **{name: {**LAZY_PER_STEP} for name in BASELINES},
+                               **LAZY_PER_STEP, "adam_dense": 2},
+    "embed_mlp_unbias": {**LAZY_PER_STEP, "adam_dense": 1},
+    **{name: {**LAZY_PER_STEP, "adam_dense": 2 if name == "dien" else 1}
+       for name in BASELINES},
 })
 DIN_FILE_STEPS = 2          # cli.train steps of din_files_check, one save
 ZOO_STEPS = 5               # timed training steps at TRAIN_BATCH
@@ -3130,7 +3251,8 @@ def din_files_check(dev, d: str) -> dict:
     """``din`` on ``conf/dmt.conf`` as a user runs it, at full width:
     ``DIN_FILE_STEPS`` shards of ``TRAIN_BATCH`` examples written with
     ``write_shards``, ``cli.train`` over them with one save at the last
-    step (exactly the lazy update's three launches a step, finite
+    step (exactly the lazy update's three launches and one dense Adam a
+    step, finite
     losses), then ``cli.export`` of a float32 bundle and of an int8 one
     (``export_int8_rows`` ``INT8_ROWS`` in the config's ``[export_model]``:
     Sku), each read back by ``load_scorer`` and scoring the three
@@ -3173,7 +3295,7 @@ def din_files_check(dev, d: str) -> dict:
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     train_counts = read_counts()
-    _expect(train_counts, LAZY_PER_STEP, steps, "din cli.train")
+    _expect(train_counts, EXPECTED_PER_STEP["din"], steps, "din cli.train")
     ecfg = DMTConfig.from_ini(confs["f32"])
     with open(os.path.join(ecfg.summary_path, "train.jsonl")) as f:
         summary = [json.loads(line) for line in f]
@@ -4792,6 +4914,8 @@ def main() -> int:
     seg, col = segsum_phase(cfg, train["trainer"], train["state"],
                             train["batches"][0], counts, dev)
     rows = update_phase(train["state"], col, counts, dev)
+    opt = adam_phase(train["trainer"], train["state"], train["batches"][0],
+                     train["gen"], counts, dev)
     step_ms, eps = train["step_ms"], train["examples_per_s"]
 
     # ---- the save mode (DMT_BLOCK_SAVE=1) of the fused block ----
@@ -4816,7 +4940,7 @@ def main() -> int:
     t_d = time.perf_counter()
     data = data_phase(cfg, train["trainer"], train["state"], train["gen"],
                       dev, EXPECTED_PER_STEP["dmt"])
-    for rec in [fwd, bwd, seg] + rows:
+    for rec in [fwd, bwd, seg] + rows + [opt]:
         by = rec.setdefault("launches_by_path",
                             {"train": counts[rec["name"]]})
         by["data"] = data["counts"][rec["name"]]
@@ -4833,7 +4957,7 @@ def main() -> int:
         t_f = time.perf_counter()
         files = files_phase(cfg, dev, EXPECTED_PER_STEP["dmt"], data_eps[0],
                             unpacked_ms, data_eps[1], fdir)
-        for rec in [fwd, bwd, seg] + rows:
+        for rec in [fwd, bwd, seg] + rows + [opt]:
             rec["launches_by_path"]["files"] = (
                 files["counts"][rec["name"]]
                 + 2 * files["resume_counts"][rec["name"]])
@@ -4852,13 +4976,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         mesh = mesh_phase(cfg, dev, EXPECTED_PER_STEP["dmt"], files["data"],
                           fdir)
-        for rec in [fwd, bwd, seg] + rows:
+        for rec in [fwd, bwd, seg] + rows + [opt]:
             rec["launches_by_path"]["mesh"] = mesh["counts"][rec["name"]]
 
         # ---- the model axis: tables split over the model group ----
         torch.cuda.empty_cache()
         axis = axis_phase(cfg, dev, EXPECTED_PER_STEP["dmt"], fdir)
-        for rec in [fwd, bwd, seg] + rows:
+        for rec in [fwd, bwd, seg] + rows + [opt]:
             rec["launches_by_path"]["model_axis"] = \
                 axis["counts"][rec["name"]]
     t_flag = time.perf_counter() - t_flag
@@ -4873,7 +4997,13 @@ def main() -> int:
     card_vs_cpu_step(cfg2, dev)
     torch.cuda.empty_cache()
     train2 = train_phase(cfg2, dev, EXPECTED_PER_STEP["dmt_2block"])
-    del train2["trainer"], train2["state"], train2["batches"]
+    leaves2 = adam_exact(train2["trainer"], train2["state"],
+                         train2["batches"][0], train2["gen"], "dmt_2block")[0]
+    opt["bit_equal"]["dmt_2block"] = len(leaves2)
+    opt["launches"] += train2["counts"]["adam_dense"]
+    opt["launches_by_path"]["dmt_2block_train"] = \
+        train2["counts"]["adam_dense"]
+    del train2["trainer"], train2["state"], train2["batches"], leaves2
     torch.cuda.empty_cache()
     att_counts = {k: serve2["counts"][k] + ev["counts"][k]
                   + train2["counts"][k]
@@ -4888,7 +5018,7 @@ def main() -> int:
 
     # ---- the rest of the model lattice ----
     zoo = zoo_phase(dev)
-    for rec in [fwd, bwd, seg] + rows:
+    for rec in [fwd, bwd, seg] + rows + [opt]:
         n = zoo["counts"][rec["name"]]
         rec["launches"] += n
         rec.setdefault("launches_by_path", {})["zoo"] = n
@@ -4896,7 +5026,7 @@ def main() -> int:
     # ---- the bfloat16 training path as bench.py configures it ----
     torch.cuda.empty_cache()
     bf = bf16_phase(dev)
-    for rec in [fwd, bwd, seg] + rows:
+    for rec in [fwd, bwd, seg] + rows + [opt]:
         by = rec.setdefault("launches_by_path", {})
         for path, c in bf["counts"].items():
             rec["launches"] += c[rec["name"]]
@@ -4965,7 +5095,7 @@ def main() -> int:
         f"{time.perf_counter() - t_main:.1f}s")
     print(smi)
     print(json.dumps({"kernels": [fwd, bwd, seg] + rows
-                      + [att_fwd, att_bwd]}))
+                      + [att_fwd, att_bwd, opt]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -58,9 +58,9 @@ import torch
 
 from ..core.config import DMTConfig
 from ..data.pipeline import IDS
+from ..ops.adam import B1, B2, EPS
 from ..ops.scatter_rows import (take_rows_sparse_sorted, update_rows,
                                 update_rows_3d)
-from .optim import B1, B2, EPS
 
 
 @dataclass(frozen=True)

@@ -12,6 +12,8 @@ optimizers), not ``torch.optim``'s, which puts eps elsewhere:
   for a low-precision (bfloat16) parameter the update is rounded to its
   type and then added in that type, two roundings, as optax's
   ``apply_updates`` does (``torch.optim.Adam`` keeps bfloat16 moments);
+  on the card one multi-tensor kernel does every leaf's step
+  (``ops/adam.py``), with the same bits as the step leaf by leaf;
 - ``sgd``, ``adagrad`` (accumulator from 0.1, ``g * rsqrt(acc + 1e-7)``
   where acc > 0), ``rmsprop`` (decay 0.9, eps 1e-10 inside the root),
   ``adadelta`` (rho 0.9, eps 1e-6) and ``ftrl`` (the JAX package's
@@ -33,8 +35,7 @@ import torch
 
 from ..core.config import DMTConfig
 from ..nn.layers import tree_map
-
-B1, B2, EPS = 0.9, 0.999, 1e-8  # TF1 AdamOptimizer defaults
+from ..ops.adam import B1, B2, adam_dense
 
 
 def piecewise_constant(boundaries, rates):
@@ -85,23 +86,34 @@ def adam_init(params) -> dict:
 def adam_update(params, grads, state: dict, schedule):
     """One Adam step on every leaf; returns (new params, new state).
     ``grads`` has the tree of ``params``; lr = schedule(count) with the
-    pre-increment count, bias correction by count + 1 (optax)."""
-    count = state["count"] + 1
-    lr = schedule(state["count"])
-    c = count.float()
+    pre-increment count, bias correction by count + 1 (optax).  The leaves
+    go through ``ops/adam.py`` ``adam_dense``: those on the card into a few
+    launches of one kernel, those on the CPU one by one."""
+    count, lr, bc1, bc2 = adam_scalars(state["count"], schedule)
+    new = iter(adam_dense(zip_leaves(params, grads, state["m"], state["v"]),
+                          lr, bc1, bc2))
+    new_p, m, v = _map_leaves(lambda _: next(new), 3, params)
+    return new_p, {"m": m, "v": v, "count": count}
+
+
+def adam_scalars(count: torch.Tensor, schedule):
+    """The step after ``count`` updates: (count + 1, its rate, the bias
+    corrections 1 - b1^(count + 1) and 1 - b2^(count + 1)), tensors on
+    ``count``'s device."""
+    after = count + 1
+    lr = schedule(count)
+    c = after.float()
     bc1 = 1.0 - torch.pow(torch.tensor(B1, device=c.device), c)
     bc2 = 1.0 - torch.pow(torch.tensor(B2, device=c.device), c)
+    return after, lr, bc1, bc2
 
-    def leaf(p, g, m, v):
-        g32 = g.float()
-        m_new = (1.0 - B1) * g32 + B1 * m
-        v_new = (1.0 - B2) * (g32 * g32) + B2 * v
-        u = (-lr) * ((m_new / bc1) / (torch.sqrt(v_new / bc2) + EPS))
-        return p + u.to(p.dtype), m_new, v_new
 
-    new_p, m, v = _map_leaves(leaf, 3, params, grads, state["m"],
-                              state["v"])
-    return new_p, {"m": m, "v": v, "count": count}
+def zip_leaves(*trees) -> list:
+    """The tuples of the leaves of trees of one structure, in the order in
+    which ``_map_leaves`` visits them."""
+    out = []
+    _map_leaves(lambda *leaf: out.append(leaf) or (), 0, *trees)
+    return out
 
 
 def _map_leaves(fn, n_out: int, *trees):

@@ -928,6 +928,19 @@ LATTICE = ("mlp", "embed_mlp", "embed_mlp_unbias", "multi_task", "mmoe",
            "mmoe_transformer_unbias")
 
 
+def _adam_launches(cfg) -> int:
+    """The dense Adam's launches in one training step of ``cfg``:
+    ``ops/adam.py``'s plan of the dense leaves (one launch a
+    ``MAX_LEAVES`` leaves)."""
+    from cikm2020_dmt_torch.ops import adam
+    from cikm2020_dmt_torch.train.loop import Trainer, _flatten
+
+    tr = Trainer(cfg, device="cpu")
+    params = tr.model.init(torch.Generator().manual_seed(0))
+    return len(adam.plan([t.numel()
+                          for t in _flatten(tr._dense(params), [])]))
+
+
 def _lattice_cfg(model_type, is_bn=False):
     """``conf/dmt.conf`` with ``model_type``, tables cut to 5,000 rows and
     the tables of 5,000 rows under lazy Adam; dropout off; batch norm's
@@ -957,7 +970,7 @@ def test_lattice_model_on_card(model_type, is_bn, cuda_device):
     """Each lattice model on the card: one training step with one block
     forward and backward per sequence group and the lazy update's three
     launches per table of 5,000 rows (Sku, Cid3, Brand, Shopid after the
-    cut) or none (mlp), a finite loss and, where ``is_bn``, the moving
+    cut) or none (mlp), the dense Adam's planned launches, a finite loss and, where ``is_bn``, the moving
     statistics moved; then its eval forward (the bias head too) on that
     state within 1e-4 of the CPU forward, one block-forward launch per
     group."""
@@ -980,7 +993,8 @@ def test_lattice_model_on_card(model_type, is_bn, cuda_device):
     assert cs.read_counts() == {
         "fused_block_fwd": groups, "fused_block_bwd": groups,
         "attention_fwd": 0, "attention_bwd": 0, "sorted_segsum": lazy,
-        "update_rows": lazy, "update_rows_3d": lazy}
+        "update_rows": lazy, "update_rows_3d": lazy,
+        "adam_dense": _adam_launches(cfg)}
     assert torch.isfinite(loss)
     flat = torch.utils._pytree.tree_leaves
     moving = flat(state["model_state"])
@@ -1014,12 +1028,13 @@ def test_baseline_step_matches_cpu_on_card(model_type, cuda_device):
     no block."""
     import chip_smoke as cs
 
+    cfg = _lattice_cfg(model_type)
     cs.reset_counts()
-    check = cs.card_vs_cpu_step(_lattice_cfg(model_type), cuda_device)
+    check = cs.card_vs_cpu_step(cfg, cuda_device)
     assert cs.read_counts() == {
         "fused_block_fwd": 0, "fused_block_bwd": 0, "attention_fwd": 0,
         "attention_bwd": 0, "sorted_segsum": 4, "update_rows": 4,
-        "update_rows_3d": 4}
+        "update_rows_3d": 4, "adam_dense": _adam_launches(cfg)}
     assert check["loss_rel_err"] <= 1e-4 and check["grad_err"] <= 1e-2
 
 
@@ -1122,7 +1137,7 @@ def test_mesh_step_on_card(cuda_device):
         assert o["counts"] == {
             "fused_block_fwd": 3, "fused_block_bwd": 3, "attention_fwd": 0,
             "attention_bwd": 0, "sorted_segsum": 4, "update_rows": 4,
-            "update_rows_3d": 4}
+            "update_rows_3d": 4, "adam_dense": _adam_launches(cfg)}
 
 
 @pytest.mark.cuda
@@ -1208,7 +1223,7 @@ def test_model_axis_step_on_card(cuda_device):
         assert o["counts"] == {
             "fused_block_fwd": 3, "fused_block_bwd": 3, "attention_fwd": 0,
             "attention_bwd": 0, "sorted_segsum": 16, "update_rows": 1,
-            "update_rows_3d": 1}
+            "update_rows_3d": 1, "adam_dense": _adam_launches(cfg)}
     mine, other = out[0]["replicated"], out[1]["replicated"]
     assert set(mine) == set(other)
     assert [k for k in mine if not torch.equal(mine[k], other[k])] == []
@@ -1238,12 +1253,13 @@ def test_bf16_step_matches_cpu_on_card(grid_bf16, cuda_device):
     on, 3 of 6 such checks at batch 256 failed on an H100."""
     import chip_smoke as cs
 
+    cfg = _bench_cfg(grid_bf16)
     cs.reset_counts()
-    check = cs.bf16_card_vs_cpu_step(_bench_cfg(grid_bf16), cuda_device)
+    check = cs.bf16_card_vs_cpu_step(cfg, cuda_device)
     assert cs.read_counts() == {
         "fused_block_fwd": 3, "fused_block_bwd": 3, "attention_fwd": 0,
         "attention_bwd": 0, "sorted_segsum": 1, "update_rows": 1,
-        "update_rows_3d": 1}
+        "update_rows_3d": 1, "adam_dense": _adam_launches(cfg)}
     assert check["grad_err_over_tol"] <= 1.0
     assert check["leaves_checked"] > 100
     # the Trainer on the card sums bfloat16 products in float32
