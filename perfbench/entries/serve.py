@@ -24,7 +24,7 @@ from concurrent import futures
 import numpy as np
 import torch
 
-from .. import harness, seeds, weights, work
+from .. import harness, models, seeds, weights
 from ..reference import compare, model
 from ..reference import serve as ref_serve
 from ..trace import now, stretch
@@ -79,6 +79,7 @@ def run(ctx, fault=None, control=False) -> dict:
     from cikm2020_dmt_torch.serve.queue import ScorerQueue
 
     conf, dev, cell, seed = ctx.conf, ctx.device, ctx.cell, ctx.seed
+    mod = models.of(conf.model_type)
     tp = cell["traffic"]
     nrng = np.random.default_rng(seeds.derive(seed, seeds.NORM))
     mean = nrng.normal(0.5, 1.0, conf.feature_dimension)
@@ -94,7 +95,7 @@ def run(ctx, fault=None, control=False) -> dict:
     for r in pool:
         r.pop("_lens")
     lens = [_request_lens(conf, r) for r in pool]
-    ops = [work.request_ops(conf, l, int(tp["candidates"])) for l in lens]
+    ops = [mod.request_ops(conf, l, int(tp["candidates"])) for l in lens]
 
     def submit(i, pending, c):
         req = dict(pool[i])
@@ -162,7 +163,6 @@ def run(ctx, fault=None, control=False) -> dict:
 
     # ---- the traced stretch ----
     if ctx.trace:
-        D, F = conf.d_model, conf.d_ff
         secs = float(cell.get("trace_seconds", 1.0))
         traced: list = []
 
@@ -175,15 +175,9 @@ def run(ctx, fault=None, control=False) -> dict:
         harness.log(f"# traced stretch: {len(traced)} requests in "
                     f"{secs:.3f} s, {len(traced) / secs:.1f} requests/s "
                     f"(window {rate:.1f})")
-        least = 0.0
-        for _, _, _, idx in counted.forwards:
-            for i in idx:
-                if i is None:
-                    continue
-                for g in conf.attention_pairs:
-                    least += work.least_s(*work.block_serve_work(
-                        lens[i][g[0][0]], int(tp["candidates"]), D, F))
-        rec["trace_work"] = {"block_s": least}
+        rec["trace_work"] = mod.serve_kernel_s(
+            conf, [lens[i] for _, _, _, idx in counted.forwards
+                   for i in idx if i is not None], int(tp["candidates"]))
         rec["trace_host"] = stretch(lambda: load(0.25, [], []),
                                     lambda: harness.sync(dev), host=True,
                                     warm=lambda: load(0.2, [], []))

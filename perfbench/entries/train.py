@@ -18,7 +18,7 @@ import gc
 
 import torch
 
-from .. import harness, seeds, weights, work
+from .. import harness, models, seeds, weights
 from ..reference import compare, model
 from ..reference import train as ref_train
 from ..trace import now, stretch
@@ -63,6 +63,7 @@ def run(ctx, fault=None, control=False) -> dict:
     from cikm2020_dmt_torch.train.loop import Trainer
 
     conf, dev, cell = ctx.conf, ctx.device, ctx.cell
+    mod = models.of(conf.model_type)
     tp = cell["traffic"]
     n_check = int(cell["check_steps"])
     tr = Trainer(ctx.cfg, device=dev)
@@ -123,7 +124,7 @@ def run(ctx, fault=None, control=False) -> dict:
     failed = int((~finite).sum())
     memory = (torch.cuda.max_memory_allocated(dev)
               if dev.type == "cuda" else 0)
-    ops = {i: work.train_step_ops(conf, lens[i]) for i in set(used)}
+    ops = {i: mod.train_step_ops(conf, lens[i]) for i in set(used)}
     rec = {"entry": "train", "window_s": window_s,
            "examples_per_s": steps * B / window_s,
            "spans": {"train_step": spans},
@@ -146,7 +147,7 @@ def run(ctx, fault=None, control=False) -> dict:
         rec["trace"] = stretch(traced(n_trace, seen),
                                lambda: harness.sync(dev),
                                warm=traced(1, []))
-        rec["trace_work"] = _stretch_work(conf, [lens[i] for i in seen])
+        rec["trace_work"] = mod.train_kernel_s(conf, [lens[i] for i in seen])
         harness.log(f"# traced stretch: {n_trace} steps in "
                     f"{rec['trace'].window_s:.4f} s, "
                     f"{n_trace * B / rec['trace'].window_s:.1f} examples/s "
@@ -201,19 +202,4 @@ def closed_loop(fn, seconds: float, sync) -> tuple[list, float]:
     sync()
     return spans, now() - t0
 
-
-def _stretch_work(conf, lens_list) -> dict:
-    """Least seconds of the block's and the attention's work over the
-    traced steps (the fused block on 1 + 1 stacks, the attention kernels
-    on the others)."""
-    D, F = conf.d_model, conf.d_ff
-    out = {"block_s": 0.0, "attention_s": 0.0}
-    for lens in lens_list:
-        for t in work.group_lens(conf, lens):
-            if conf.blocks_encode == 1 and conf.blocks_decode == 1:
-                out["block_s"] += work.least_s(*work.block_train_work(t, D, F))
-            else:
-                out["attention_s"] += work.least_s(*work.attention_train_work(
-                    t, D, conf.blocks_encode, conf.blocks_decode))
-    return out
 

@@ -17,6 +17,7 @@ from . import modelconf
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH_DIR = os.path.join(ROOT, "perfbench")
+CELL_DIR = os.path.join(BENCH_DIR, "cells")
 
 
 def log(msg: str) -> None:
@@ -38,7 +39,7 @@ class Context:
 
 
 def load_cell(name: str) -> dict:
-    path = os.path.join(BENCH_DIR, "cells", name + ".json")
+    path = os.path.join(CELL_DIR, name + ".json")
     if not os.path.isfile(path):
         raise SystemExit(f"no cell {name!r} ({path})")
     with open(path) as f:

@@ -9,7 +9,9 @@ carry (batch size, the row count from which a table is stored bfloat16,
 the lazy-Adam plan).  Both sides of a run read the same two files: the
 program through its own config loader, with ``settings`` as overrides,
 and the traffic generators and the plain reference through ``load``
-below, which imports nothing of the program.
+below, which imports nothing of the program.  ``load`` reads the part of
+the file that every model type shares and hands the rest to the plain
+model of its ``model_type`` (``perfbench/models/``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import json
 import os
 import re
 from dataclasses import dataclass, field
+
+from . import models
 
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "configs")
@@ -46,26 +50,12 @@ class Spec:
 
 @dataclass
 class ModelConf:
+    """What every model type's configuration has; the type's module
+    (``perfbench/models/<model_type>.py``) adds its own keys in a
+    subclass."""
     name: str
     model_type: str
     feature_dimension: int
-    hidden_bottom: tuple
-    hidden_task: tuple
-    hidden_bias: tuple
-    num_experts: int
-    d_model: int
-    d_ff: int
-    num_heads: int
-    blocks_encode: int
-    blocks_decode: int
-    maxlen_k: int
-    dropout: float
-    position: str
-    dropout_rate_bias: tuple
-    loss_weight: tuple
-    loss_unbias_method: str
-    loss_ctr_rel_method: str
-    export_weight: tuple
     learning_rate: tuple
     step_boundary: tuple
     weight_ctr: tuple
@@ -147,11 +137,11 @@ def _weights(text: str) -> tuple:
     return tuple(sorted(pairs))
 
 
-def _floats(text: str) -> tuple:
+def floats(text: str) -> tuple:
     return tuple(float(x) for x in text.split(",") if x.strip())
 
 
-def _ints(text: str) -> tuple:
+def ints(text: str) -> tuple:
     return tuple(int(x) for x in text.split(",") if x.strip())
 
 
@@ -167,7 +157,10 @@ def conf_path(name: str) -> str:
 
 def load(name: str, **settings) -> ModelConf:
     """The configuration ``name``, with ``settings`` overriding those of
-    its JSON file (tests shrink a copy this way)."""
+    its JSON file (tests shrink a copy this way): an instance of its model
+    type's ``Conf``.  A type without a module under ``perfbench/models/``,
+    or a key that the type's plain reference does not cover, raises
+    ``ValueError``."""
     m = meta(name)
     cp = configparser.ConfigParser(interpolation=None)
     with open(os.path.join(CONFIG_DIR, m["conf"])) as f:
@@ -179,34 +172,15 @@ def load(name: str, **settings) -> ModelConf:
     def model(key):
         return get("model", key)
 
-    def tr(key):
-        return model("transformer_" + key)
-
     st = dict(m["settings"])
     st.update(settings)
-    conf = ModelConf(
+    mod = models.of(model("model_type"))
+    conf = mod.Conf(
         name=name,
         model_type=model("model_type"),
         feature_dimension=int(model("feature_dimension")),
-        hidden_bottom=_ints(model("hidden_units_bottom")),
-        hidden_task=_ints(model("hidden_units_task")),
-        hidden_bias=_ints(model("hidden_units_bias")),
-        num_experts=int(model("num_experts")),
-        d_model=int(tr("d_model")),
-        d_ff=int(tr("d_ff")),
-        num_heads=int(tr("num_heads")),
-        blocks_encode=int(tr("num_blocks_encode")),
-        blocks_decode=int(tr("num_blocks_decode")),
-        maxlen_k=int(tr("maxlen_k")),
-        dropout=float(tr("dropout_rate")),
-        position=tr("position_encoding_method"),
-        dropout_rate_bias=_floats(model("dropout_rate_bias")),
-        loss_weight=_floats(get("parameter", "loss_weight")),
-        loss_unbias_method=model("loss_unbias_method"),
-        loss_ctr_rel_method=model("loss_ctr_rel_method"),
-        export_weight=_floats(get("export_model", "export_weight")),
-        learning_rate=_floats(model("learning_rate")),
-        step_boundary=_ints(model("step_boundary")),
+        learning_rate=floats(model("learning_rate")),
+        step_boundary=ints(model("step_boundary")),
         weight_ctr=_weights(get("class_weight", "weight_ctr")),
         weight_ecvr=_weights(get("class_weight", "weight_ecvr")),
         train_weight=_weights(get("class_weight", "train_weight")),
@@ -216,18 +190,8 @@ def load(name: str, **settings) -> ModelConf:
         attention_ts=tuple(t.strip() for t in get(
             "embedding", "attention_embed_seq_ts").split("|") if t.strip()),
         zero_pad=model("zero_pad").lower() in ("true", "1", "yes"),
-        settings=st)
-    for key, want in (("model_type", "mmoe_transformer_unbias"),
-                      ("position", "position_learn")):
-        if getattr(conf, key) != want:
-            raise ValueError(f"{name}: the plain reference covers {key} "
-                             f"{want!r}, not {getattr(conf, key)!r}")
-    for key in ("is_bn", "is_dropout", "transformer_is_trans_input_by_mlp",
-                "transformer_is_trans_out_concat_item",
-                "transformer_is_decoder_add_pos_emb", "propensity_em"):
-        if cp.has_option("model", key) and model(key).lower() == "true":
-            raise ValueError(f"{name}: the plain reference does not cover "
-                             f"{key} = true")
+        settings=st, **mod.read(cp))
+    mod.check(conf, cp)
     return conf
 
 

@@ -1,12 +1,14 @@
 """Plain PyTorch reference of serving: online normalization of the raw
-dense features, the user's rows repeated over the candidates, the
-forward without the bias head, and the blended Scores."""
+dense features, the user's rows repeated over the candidates, and the
+serving forward and Scores of the configuration's plain model
+(``perfbench/models/``)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .. import models
 from . import model
 
 STD_EPS = 1e-7
@@ -48,13 +50,13 @@ def scores(conf, params, requests: list, scale, const, device,
            block: int = 16) -> list:
     """[3, candidates] numpy (Scores, click, order) of each request, in
     blocks of ``block`` requests."""
+    mod = models.of(conf.model_type)
     out = []
     for i in range(0, len(requests), block):
         part = requests[i:i + block]
         b = batch_of(conf, part, scale, const, device)
-        logits, _ = model.forward(conf, params, b, model.Lookups(),
-                                  train=False, with_bias=False)
-        s = torch.stack(model.scores(conf, logits)).cpu().numpy()
+        fwd = mod.forward(conf, params, b, model.Lookups(), train=False)
+        s = torch.stack(mod.scores(conf, fwd)).cpu().numpy()
         off = 0
         for r in part:
             k = int(r["valid"].shape[0])

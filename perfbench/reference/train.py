@@ -1,15 +1,17 @@
 """Plain PyTorch reference of the training step: the forward and loss of
-``reference/model.py``, autograd's backward, Adam on every dense leaf
-(optax's formula: float32 moments, the update rounded to the leaf's type
-and added in it) and LazyAdam on the touched row groups of each lazy
-table (``ModelConf.lazy_tables``).  Rows of a lazy table are gathered
-once per step from the id union; their gradient is the float32 sum of
-the lookups' cotangents, rounded once to the table's type."""
+the configuration's plain model (``perfbench/models/``), autograd's
+backward, Adam on every dense leaf (optax's formula: float32 moments,
+the update rounded to the leaf's type and added in it) and LazyAdam on
+the touched row groups of each lazy table (``ModelConf.lazy_tables``).
+Rows of a lazy table are gathered once per step from the id union; their
+gradient is the float32 sum of the lookups' cotangents, rounded once to
+the table's type."""
 
 from __future__ import annotations
 
 import torch
 
+from .. import models
 from . import model
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -51,6 +53,7 @@ class Reference:
 
     def __init__(self, conf, params: dict):
         self.conf = conf
+        self.mod = models.of(conf.model_type)
         self.params = params
         self.lazy = conf.lazy_tables()
         self.dense = [(p, t) for p, t in leaves(params)
@@ -85,10 +88,9 @@ class Reference:
                           "rows": rows,
                           "grid": rows.float().requires_grad_()}
             params.setdefault("emb", {})[name] = table
-        logits, bias = model.forward(conf, params, batch,
-                                     model.Lookups(lazy), train=True,
-                                     gen=gen)
-        loss = model.loss(conf, logits, bias, batch["mask"])
+        out = self.mod.forward(conf, params, batch, model.Lookups(lazy),
+                               train=True, gen=gen)
+        loss = self.mod.loss(conf, out, batch)
         wrt = list(diff.values()) + [z["grid"] for z in lazy.values()]
         grads = torch.autograd.grad(loss, wrt, allow_unused=True)
         grads = [torch.zeros_like(w) if g is None else g

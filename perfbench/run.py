@@ -10,7 +10,8 @@ its entry (``perfbench/entries/<entry>.py``), its traffic, the kernel
 libraries to build first, and its correctness limits.  The run builds
 what is not built, makes weights and inputs from the seed, warms up,
 measures for ``--seconds``, compares what the timed path produced with
-the plain reference (``perfbench/reference/``) and prints one JSON line
+the plain reference (``perfbench/reference/`` and the configuration's
+plain model, ``perfbench/models/<model_type>.py``) and prints one JSON line
 last: ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
 end-to-end metrics, or with ``--trace 1`` its per-layer ones, read by
 ``perfbench/metrics/<metric>.py``), ``device``, ``breakdown`` with

@@ -10,7 +10,7 @@ import re
 
 import pytest
 
-from perfbench import harness, modelconf
+from perfbench import harness, modelconf, models
 
 BENCH = harness.load_benchmark()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -58,7 +58,8 @@ def test_configuration_files(cfg):
     assert cfg["file"] == f"perfbench/configs/{cfg['name']}.json"
     assert meta["reduced"] == cfg["reduced"] and meta["source"] == cfg["source"]
     conf = modelconf.load(cfg["name"])
-    assert conf.d_model == 80 and conf.d_ff == 320 and conf.num_heads == 4
+    widths = models.of(conf.model_type).WIDTHS
+    assert {k: getattr(conf, k) for k in widths} == widths
     assert harness.program_config(conf).batch_size == conf.settings["batch_size"]
 
 

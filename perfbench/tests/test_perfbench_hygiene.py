@@ -1,6 +1,7 @@
 """Nothing under perfbench/ imports JAX, the JAX package or the JAX
 package's scripts (top-level module names compared whole), and nothing
-under perfbench/reference/ names the program under test."""
+under perfbench/reference/ or a folder of plain models (perfbench/models/
+and the tests' fixture) names the program under test."""
 
 from __future__ import annotations
 
@@ -51,6 +52,17 @@ def test_reference_names_nothing_of_the_program(path):
     assert not {m for m in _imports(path)} - {"torch", "numpy", "math",
                                               "typing", "statistics",
                                               "__future__"}
+
+
+@pytest.mark.parametrize("path", [p for p in SOURCES if os.sep + "models"
+                                  + os.sep in p],
+                         ids=lambda p: os.path.relpath(p, BENCH))
+def test_plain_models_name_nothing_of_the_program(path):
+    assert "cikm2020_dmt_torch" not in open(path).read()
+    assert not {m for m in _imports(path)} - {"torch", "numpy", "math",
+                                              "typing", "statistics",
+                                              "dataclasses", "os", "sys",
+                                              "importlib", "__future__"}
 
 
 def test_run_refuses_jax_in_the_process(monkeypatch):

@@ -70,3 +70,45 @@ def test_least_time_takes_the_larger_bound():
     assert work.least_s(495e12, 0) == 1.0
     assert work.least_s(0, 3.35e12) == 1.0
     assert work.least_s(495e12, 6.7e12) == 2.0
+
+
+# Each configuration's counts through its model module at fixed lengths,
+# as the benchmark computed them before the module was put between the
+# entries and the counts.  Every count is a sum of whole numbers or one
+# division of it, so they are equal on any machine.
+PINNED = {
+    "dmt": {"train_step_ops": [180576288.0, 159105480.0],
+            "request_ops": [1981598400.0, 1988765712.0, 2004562944.0,
+                            2012113760.0],
+            "train_kernel_s": {"block_s": 2.1192823880597017e-06,
+                               "attention_s": 0.0},
+            "serve_kernel_s": {"block_s": 2.7540788059701493e-06}},
+    "dmt_2block": {"train_step_ops": [285905568.0, 242986440.0],
+                   "request_ops": [2085278400.0, 2099608272.0,
+                                   2131192704.0, 2146289760.0],
+                   "train_kernel_s": {"block_s": 0.0,
+                                      "attention_s": 7.988632835820896e-07},
+                   "serve_kernel_s": {"block_s": 2.7540788059701493e-06}},
+}
+
+
+@pytest.mark.parametrize("name", sorted(PINNED))
+def test_counts_through_the_model_module_are_pinned(name):
+    from perfbench import models
+
+    conf = modelconf.load(name)
+    mod = models.of(conf.model_type)
+
+    def lens(picks):
+        return {f.feature: np.array([min(f.max_len, x) for x in picks])
+                for f in conf.features}
+
+    steps = [lens((1, 7, 23, 50)), lens((3, 10, 50, 0))]
+    reqs = [{f.feature: min(f.max_len, k) for f in conf.features}
+            for k in (0, 9, 37, 50)]
+    want = PINNED[name]
+    assert [mod.train_step_ops(conf, s) for s in steps] == \
+        want["train_step_ops"]
+    assert [mod.request_ops(conf, r, 300) for r in reqs] == want["request_ops"]
+    assert mod.train_kernel_s(conf, steps) == want["train_kernel_s"]
+    assert mod.serve_kernel_s(conf, reqs, 300) == want["serve_kernel_s"]

@@ -1,5 +1,5 @@
-"""Seeded weights of a configuration, made by the benchmark: the plain
-reference's layout (``reference/model.layout``), drawn on the device in
+"""Seeded weights of a configuration, made by the benchmark: the layout
+of its model type's plain model (``perfbench/models/``), drawn on the device in
 one call of a ``torch.Generator`` and cut into leaves, each in the type
 it is stored in.  Both sides of a run get the same weights: the program
 as a copy into its own tree, the reference as made here."""
@@ -10,7 +10,7 @@ import math
 
 import torch
 
-from . import seeds
+from . import models, seeds
 from .reference import model
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -19,7 +19,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def make(conf, seed: int, device) -> dict:
     """The parameter tree of ``conf`` for run ``seed`` on ``device``:
     uniform leaves in [-limit, limit], constant leaves filled."""
-    spec = model.layout(conf)
+    spec = models.of(conf.model_type).layout(conf)
     total = sum(math.prod(shape) for _, shape, _, init in spec
                 if init[0] == "uniform")
     gen = torch.Generator(device=device).manual_seed(
