@@ -25,8 +25,6 @@ from jax.sharding import Mesh as JMesh  # noqa: E402
 import __graft_entry__ as g  # noqa: E402
 import torch_mesh_workers as workers  # noqa: E402
 from cikm2020_dmt_tpu.metrics.streaming import \
-    task_metrics_init as j_metrics_init  # noqa: E402
-from cikm2020_dmt_tpu.metrics.streaming import \
     task_metrics_values as j_metrics_values  # noqa: E402
 from cikm2020_dmt_tpu.parallel.full_shard import \
     fms_table_rows as j_fms_table_rows  # noqa: E402
@@ -40,7 +38,7 @@ from cikm2020_dmt_torch.parallel.full_shard import fms_table_rows  # noqa: E402
 from cikm2020_dmt_torch.train.lazy import build_lazy_plan  # noqa: E402
 from cikm2020_dmt_torch.train.loop import Trainer  # noqa: E402
 from test_torch_serve import SMALL, port_cfg  # noqa: E402
-from test_torch_train import leaves, port_view  # noqa: E402
+from test_torch_train import jax_metrics, leaves, port_view  # noqa: E402
 
 B = 64
 LR = 1e-3
@@ -76,7 +74,7 @@ def run_jax(cfg, n: int, batches: list) -> dict:
     ts = jt.shard_state(jt.init_state())
     step = jt._train_step()
     states, losses = [to_numpy(ts)], []
-    jm = j_metrics_init()
+    jm = jax_metrics(jt)
     rng = jax.random.key(0, impl="rbg")
     for i, b in enumerate(batches):
         ts, jm, loss = step(ts, jm, jt.device_batch(g._as_batch(b)),

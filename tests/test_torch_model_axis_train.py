@@ -42,9 +42,7 @@ from cikm2020_dmt_torch.train.loop import Trainer  # noqa: E402
 from test_torch_mesh import (check_metrics, check_state,  # noqa: E402
                              to_numpy)
 from test_torch_serve import SMALL, port_cfg  # noqa: E402
-from test_torch_train import port_view  # noqa: E402
-from cikm2020_dmt_tpu.metrics.streaming import \
-    task_metrics_init as j_metrics_init  # noqa: E402
+from test_torch_train import jax_metrics, port_view  # noqa: E402
 from cikm2020_dmt_tpu.metrics.streaming import \
     task_metrics_values as j_metrics_values  # noqa: E402
 from cikm2020_dmt_tpu.train.loop import Trainer as JTrainer  # noqa: E402
@@ -83,7 +81,7 @@ def run_jax(cfg, data: int, model: int, batches: list) -> dict:
             split[keys] = sh.spec[0]
     step = jt._train_step()
     states, losses = [to_numpy(ts)], []
-    jm = j_metrics_init()
+    jm = jax_metrics(jt)
     rng = jax.random.key(0, impl="rbg")
     for i, b in enumerate(batches):
         ts, jm, loss = step(ts, jm, jt.device_batch(g._as_batch(b)),

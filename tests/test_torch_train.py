@@ -22,6 +22,7 @@ import jax  # noqa: E402
 from jax.sharding import Mesh  # noqa: E402
 
 import __graft_entry__ as g  # noqa: E402
+from cikm2020_dmt_tpu.core.mesh import replicated  # noqa: E402
 from cikm2020_dmt_tpu.data.pipeline import IDS  # noqa: E402
 from cikm2020_dmt_tpu.metrics.streaming import \
     task_metrics_init as j_metrics_init  # noqa: E402
@@ -51,6 +52,12 @@ def to_numpy(tree):
     return jax.tree_util.tree_map(np.array, tree)
 
 
+def jax_metrics(jt):
+    """The JAX metric state placed as ``jt``'s step returns it (replicated
+    on its mesh): an unplaced one makes the step compile again at step 2."""
+    return jax.device_put(j_metrics_init(), replicated(jt.mesh))
+
+
 def run_both(cfg, n_steps=2):
     """(JAX states after 0..n steps, JAX metrics, JAX losses, port states
     after 1..n steps, port metrics, port losses, batches)."""
@@ -60,7 +67,7 @@ def run_both(cfg, n_steps=2):
     step = jt._train_step()
     batches = [g.synthetic_batch(cfg, B, seed=s) for s in range(n_steps)]
     jstates, jlosses = [to_numpy(ts)], []
-    jm = j_metrics_init()
+    jm = jax_metrics(jt)
     rng = jax.random.key(0, impl="rbg")
     for i, b in enumerate(batches):
         ts, jm, loss = step(ts, jm, jt.device_batch(g._as_batch(b)),
@@ -81,7 +88,7 @@ def run_both(cfg, n_steps=2):
         plosses.append(float(loss))
     return dict(jstates=jstates, jmetrics=to_numpy(jm), jlosses=jlosses,
                 pstates=pstates, pmetrics=tm, plosses=plosses,
-                batches=batches, pcfg=pcfg)
+                batches=batches, pcfg=pcfg, jcompiles=step._cache_size())
 
 
 @pytest.fixture(scope="module")
@@ -219,3 +226,9 @@ def test_metrics_match_jax(f32_run):
 def test_no_overflow_at_the_default_budget(f32_run):
     for s in (f32_run["jstates"][-1], f32_run["pstates"][-1]):
         assert int(np.asarray(s["lazy_overflow"])) == 0
+
+
+def test_jax_step_compiles_once(f32_run):
+    """Two JAX steps, one compile: the metric state goes in placed as the
+    step returns it (``jax_metrics``)."""
+    assert f32_run["jcompiles"] == 1

@@ -93,13 +93,19 @@ def assert_trees_close(got, want, what, rel=TOL):
                                    err_msg=f"{what} {path}")
 
 
-@functools.lru_cache(maxsize=None)
 def case(model_type, is_bn, knobs=()):
     """One model's JAX and port results on the same init and batches.
     Without batch norm the init is JAX's (converted to the port's); with
     it the port's, handed to JAX as numpy (the same tree: a JAX init of a
     transformer model costs seconds of small compiles on the CPU).
-    ``knobs``: (field, value) pairs set on the config."""
+    ``knobs``: (field, value) pairs set on the config.  Computed once a
+    case: ``lru_cache`` keys ``(m, bn)`` and ``(m, bn, ())`` apart, so
+    every call reaches the cache with all three arguments."""
+    return _case(model_type, is_bn, tuple(knobs))
+
+
+@functools.lru_cache(maxsize=None)
+def _case(model_type, is_bn, knobs):
     cfg = config(model_type, is_bn, **dict(knobs))
     pcfg = port_cfg(cfg)
     jm, pm = j_build(cfg), build_model(pcfg)
@@ -193,6 +199,11 @@ def check_loss_and_grads(model_type, is_bn, knobs=()):
     c = case(model_type, is_bn, knobs)
     np.testing.assert_allclose(c["pl"], c["jl"], rtol=TOL)
     assert_trees_close(c["pgrads"], c["jgrads"], "grad")
+
+
+def test_case_is_computed_once():
+    """``case`` with and without its default ``knobs`` is one result."""
+    assert case("lr", False) is case("lr", False, ())
 
 
 def test_combiner_dims_match_jax():

@@ -25,15 +25,13 @@ import jax  # noqa: E402
 from jax.sharding import Mesh  # noqa: E402
 
 import __graft_entry__ as g  # noqa: E402
-from cikm2020_dmt_tpu.metrics.streaming import \
-    task_metrics_init as j_metrics_init  # noqa: E402
 from cikm2020_dmt_tpu.train.loop import Trainer as JTrainer  # noqa: E402
 from cikm2020_dmt_torch.convert import train_state_from_jax  # noqa: E402
 from cikm2020_dmt_torch.metrics.streaming import \
     task_metrics_init  # noqa: E402
 from cikm2020_dmt_torch.train.loop import Trainer  # noqa: E402
 from test_torch_serve import SMALL, port_cfg  # noqa: E402
-from test_torch_train import leaves, to_numpy  # noqa: E402
+from test_torch_train import jax_metrics, leaves, to_numpy  # noqa: E402
 
 B = 64
 LR = 1e-3
@@ -115,7 +113,7 @@ def run_pair(cfg, n_steps=2):
     step = jt._train_step()
     bs = batches(cfg, n_steps)
     jstates, jlosses = [to_numpy(ts)], []
-    jm = j_metrics_init()
+    jm = jax_metrics(jt)
     rng = jax.random.key(0, impl="rbg")
     for i, b in enumerate(bs):
         ts, jm, loss = step(ts, jm, jt.device_batch(g._as_batch(b)),
