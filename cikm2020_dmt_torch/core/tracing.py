@@ -18,7 +18,7 @@ group) with ``queue.check`` (the drain, checks and padding) and
 ``queue.resolve`` (its futures) (``serve/queue.py``); ``scorer.merge``
 and ``scorer.forward`` (``serve/export.py``).  A counter is a host
 integer: ``queue.requests``, ``queue.groups``, ``queue.padded``,
-``scorer.h2d_bytes``.
+``queue.odd``, ``scorer.h2d_bytes``.
 
 Span times are ``time.perf_counter_ns()``.  The snapshot's ``clock``
 pairs that clock with the unix clock (``time.time_ns()``) at the start

@@ -10,12 +10,12 @@ requests are waiting (up to ``max_group``) into one
 of a launch is shared by the group, while a lone request is dispatched at
 once: no request waits for a batching window.
 
-Before grouping, the dispatcher holds each request's keys, shapes and
-dtypes against the first request of the group and scores a request that
-differs alone.  The JAX queue instead retries a failed group one request
-at a time; that helps only for errors raised on the host, since a fault
-on the card stays with the whole CUDA context.  The retry is kept for
-host errors.
+Each request's layout (its keys, shapes and dtypes) is built once, by
+``submit``; the dispatcher holds each request's layout against the first
+request of the group and scores a request that differs alone.  The JAX
+queue instead retries a failed group one request at a time; that helps
+only for errors raised on the host, since a fault on the card stays with
+the whole CUDA context.  The retry is kept for host errors.
 
 Usage:
     q = ScorerQueue(scorer)
@@ -35,10 +35,27 @@ import numpy as np
 from ..core import tracing
 
 
-def _signature(batch: dict) -> tuple:
-    """(key, shape, dtype) of every array of a request."""
-    return tuple(sorted((k, tuple(v.shape), str(v.dtype))
-                        for k, v in batch.items()))
+_DTYPE_NAMES: dict = {}
+
+
+def _dtype_name(dtype) -> str:
+    """``str(dtype)``, built once per distinct dtype of the process (a
+    NumPy or a torch dtype): stringifying one costs microseconds, and a
+    request has dozens of arrays.  Two threads may both miss and store the
+    same name."""
+    name = _DTYPE_NAMES.get(dtype)
+    if name is None:
+        name = _DTYPE_NAMES[dtype] = str(dtype)
+    return name
+
+
+def _layout(batch: dict) -> frozenset:
+    """(key, shape, dtype name) of every array of a request, in no order:
+    two requests may share a group if and only if their layouts are
+    equal.  The name keeps a torch tensor apart from a NumPy array of the
+    same dtype (``'torch.float32'`` against ``'float32'``)."""
+    return frozenset((k, tuple(v.shape), _dtype_name(v.dtype))
+                     for k, v in batch.items())
 
 
 def _wait(v) -> None:
@@ -64,11 +81,13 @@ class ScorerQueue:
     span from ``submit`` until the dispatcher drains it, and the
     dispatcher's time is ``queue.idle`` (waiting for a request) and
     ``queue.group`` spans (one drained group: ``queue.check``, the drain,
-    the requests' checks and the padding; the scorer call;
+    the layout checks and the padding; the scorer call;
     ``queue.resolve``, the futures; ``attrs`` ``ids``, the ``seq`` of its
     requests' ``queue.wait`` spans, ``real`` and ``size``).  The counters
-    ``queue.requests``, ``queue.groups`` and ``queue.padded`` count the
-    requests, the scorer calls and the padding rows' requests."""
+    ``queue.requests``, ``queue.groups``, ``queue.padded`` and
+    ``queue.odd`` count the requests, the scorer calls, the padding rows'
+    requests and the requests scored alone because their layout differs
+    from their group's first."""
 
     def __init__(self, scorer, max_group: int = 8,
                  groups: tuple[int, ...] = (1, 2, 4, 8)):
@@ -93,7 +112,12 @@ class ScorerQueue:
                 [example_batch] * g)["Scores"])
 
     def submit(self, batch: dict) -> Future:
-        """Queues one request; resolves to {"Scores": [B], ...}."""
+        """Queues one request; resolves to {"Scores": [B], ...}.
+
+        The request is taken as it is at this moment: its layout is built
+        here, on the caller's thread, so arrays added, replaced or
+        reshaped later are not seen by the grouping."""
+        key = _layout(batch)
         fut: Future = Future()
         # the lock orders submit against close: a submit that passed the
         # closed check must enqueue before the shutdown marker, or its
@@ -101,7 +125,7 @@ class ScorerQueue:
         with self._lock:
             if self._closed:
                 raise RuntimeError("ScorerQueue is closed")
-            self._q.put((batch, fut, tracing.begin("queue.wait")))
+            self._q.put((batch, fut, tracing.begin("queue.wait"), key))
         return fut
 
     def close(self) -> None:
@@ -152,12 +176,14 @@ class ScorerQueue:
                     break
                 group.append(nxt)
             if span:
-                for _, _, wait in group:
+                for _, _, wait, _ in group:
                     wait.end()
-                ids = [w.seq for _, _, w in group if w]
-            sig = _signature(group[0][0])
-            odd = [(b, f) for b, f, _ in group if _signature(b) != sig]
-            group = [(b, f) for b, f, _ in group if _signature(b) == sig]
+                ids = [w.seq for _, _, w, _ in group if w]
+            first = group[0][3]
+            same, odd = [], []
+            for b, f, _, key in group:
+                (same if key == first else odd).append((b, f))
+            group = same
             batches = [b for b, _ in group]
             g = self._next_group_size(len(batches))
             padded = batches + [batches[-1]] * (g - len(batches))
@@ -166,6 +192,7 @@ class ScorerQueue:
             tracing.count("queue.requests", len(group) + len(odd))
             tracing.count("queue.groups")
             tracing.count("queue.padded", g - len(batches))
+            tracing.count("queue.odd", len(odd))
         try:
             out = self.scorer.score_group_async(padded)
             # slices of the device tensors only: waiting for the card

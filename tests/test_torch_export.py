@@ -26,9 +26,11 @@ from cikm2020_dmt_tpu.nn.embedding import unpack_table as j_unpack  # noqa: E402
 from cikm2020_dmt_tpu.serve import export as jexport  # noqa: E402
 from cikm2020_dmt_tpu.train.optim import make_optimizer  # noqa: E402
 from cikm2020_dmt_torch.convert import params_from_jax  # noqa: E402
+from cikm2020_dmt_torch.core import tracing  # noqa: E402
 from cikm2020_dmt_torch.core.checkpoint import CheckpointManager  # noqa: E402
 from cikm2020_dmt_torch.data import native  # noqa: E402
 from cikm2020_dmt_torch.serve import export  # noqa: E402
+from cikm2020_dmt_torch.serve import queue as queue_mod  # noqa: E402
 from cikm2020_dmt_torch.serve.queue import ScorerQueue  # noqa: E402
 from test_torch_eval_files import numpy_init  # noqa: E402
 from test_torch_serve import SMALL, port_cfg  # noqa: E402
@@ -395,6 +397,104 @@ def test_queue_scores_a_mismatched_request_alone(odd):
                                2.0 * np.asarray(bad["valid"]))
     q.close()
     assert s.group_sizes == [1, 2] and s.alone == 1
+
+
+@pytest.mark.parametrize("odd", ["count", "dtype", "key"])
+def test_queue_counts_the_mismatched_request_as_odd(odd):
+    """The test above, recorded: of its 4 requests, ``queue.odd`` counts
+    the mismatched one."""
+    tracing.snapshot()
+    with tracing.recording():
+        test_queue_scores_a_mismatched_request_alone(odd)
+    c = tracing.snapshot()["counters"]
+    assert c["queue.odd"] == 1 and c["queue.requests"] == 4
+
+
+def _str_signature(batch: dict) -> tuple:
+    """The reference grouping: (key, shape, ``str(dtype)``) of every
+    array, sorted."""
+    return tuple(sorted((k, tuple(v.shape), str(v.dtype))
+                        for k, v in batch.items()))
+
+
+def _layout_pair(case: str) -> tuple:
+    """Two requests of two keys; the second differs from the first as
+    ``case`` says."""
+    ids = np.arange(5, dtype=np.int32)[None]
+    a = {"valid": np.asarray([1.0, 2.0], np.float32), "ids": ids}
+    b = {"same": {"valid": np.asarray([3.0, 4.0], np.float32),
+                  "ids": ids + 1},
+         "shape": {**a, "ids": np.zeros((1, 6), np.int32)},
+         "dtype": {**a, "ids": ids.astype(np.int64)},
+         "key": {**a, "extra": np.zeros(1, np.float32)},
+         "torch": {**a, "ids": torch.from_numpy(ids)},
+         "order": {"ids": ids, "valid": np.asarray([5.0, 6.0],
+                                                  np.float32)}}[case]
+    return a, b
+
+
+@pytest.mark.parametrize("case, grouped", [
+    ("same", True), ("shape", False), ("dtype", False), ("key", False),
+    ("torch", False), ("order", True)])
+def test_layout_groups_as_string_signatures(case, grouped):
+    """Two requests share a group exactly where their string signatures
+    are equal: a torch tensor differs from a NumPy array of its dtype, the
+    order of the keys does not count."""
+    a, b = _layout_pair(case)
+    assert (_str_signature(a) == _str_signature(b)) is grouped
+    assert (queue_mod._layout(a) == queue_mod._layout(b)) is grouped
+    s = StubScorer()
+    q = ScorerQueue(s, max_group=4, groups=(1, 2, 4))
+    gate = Gate(s, q)
+    f_warm = gate.submit_first(a)
+    f_a, f_b = q.submit(a), q.submit(b)
+    gate.open()
+    for f, r in ((f_warm, a), (f_a, a), (f_b, b)):
+        np.testing.assert_allclose(f.result(timeout=30)["Scores"],
+                                   2.0 * np.asarray(r["valid"]))
+    q.close()
+    assert s.group_sizes == ([1, 2] if grouped else [1, 1])
+    assert s.alone == (0 if grouped else 1)
+
+
+def test_layout_equals_string_signature_for_every_dtype_pair():
+    """Over NumPy and torch dtypes, byte orders included, two one-array
+    requests have equal layouts if and only if their string signatures
+    are equal."""
+    dtypes = [np.dtype(t) for t in ("float32", "float64", "int32", "int64",
+                                    ">f4", "bool", "uint8")]
+    dtypes += [torch.float32, torch.float64, torch.bfloat16, torch.int32,
+               torch.int64, torch.bool, torch.uint8]
+    reqs = [{"x": (np.zeros(3, t) if isinstance(t, np.dtype)
+                   else torch.zeros(3, dtype=t))} for t in dtypes]
+    for a in reqs:
+        for b in reqs:
+            assert ((queue_mod._layout(a) == queue_mod._layout(b))
+                    == (_str_signature(a) == _str_signature(b))), (a, b)
+
+
+def test_queue_builds_one_layout_per_request(monkeypatch):
+    """Five submits behind the gate (one alone, then a group of 4) build
+    five layouts, each at its submit."""
+    built = []
+    real = queue_mod._layout
+
+    def counted(batch):
+        built.append(threading.current_thread().name)
+        return real(batch)
+
+    monkeypatch.setattr(queue_mod, "_layout", counted)
+    s = StubScorer()
+    q = ScorerQueue(s, max_group=4, groups=(1, 2, 4))
+    gate = Gate(s, q)
+    futs = [gate.submit_first(_req([0.0]))]
+    futs += [q.submit(_req([float(i)])) for i in range(1, 5)]
+    gate.open()
+    for i, f in enumerate(futs):
+        np.testing.assert_allclose(f.result(timeout=30)["Scores"], [2.0 * i])
+    q.close()
+    assert s.group_sizes == [1, 4]
+    assert built == [threading.current_thread().name] * 5
 
 
 def test_queue_retries_a_failed_group_one_by_one():

@@ -170,6 +170,16 @@ def test_queue_spans_and_counters(cfg):
         assert a["end"] <= b["start"]
 
 
+def test_uniform_traffic_scores_no_request_alone(cfg):
+    """Requests of one layout all take the group path: ``queue.odd`` reads
+    0 and ``queue.requests`` every request submitted."""
+    n = 6
+    _, snap = _queue_run(cfg, n, record=True)
+    c = snap["counters"]
+    assert c["queue.odd"] == 0
+    assert c["queue.requests"] == n
+
+
 def test_buffer_bound_counts_drops(monkeypatch):
     monkeypatch.setattr(tracing, "MAX_SPANS", 5)
     with tracing.recording():
